@@ -1,0 +1,190 @@
+"""Matrix Market (.mtx) I/O.
+
+Behavioral parity with the reference loader ``Source Code/utils.cpp:70-185``:
+
+* ``%`` comment lines preceding the size header are scanned for the tokens
+  ``symmetric`` and ``pattern`` (``utils.cpp:84-105``) — the reference does
+  substring matching on every comment line, not structured banner parsing,
+  and we match that observable behavior.
+* Size header is ``rows cols nnz`` (``utils.cpp:108-109``).
+* Entries are 1-based COO triplets (``utils.cpp:143-144``); ``pattern``
+  matrices carry no value column and get value 1.0 (``utils.cpp:127-131``).
+* ``symmetric`` matrices are expanded to full storage by mirroring
+  off-diagonal entries (``utils.cpp:149-152``).
+* Each row is sorted by column index (``utils.cpp:156-159``) and CSR is built
+  by cumulative sum (``utils.cpp:162-181``).
+* Open/parse failures raise (``utils.cpp:77,114,140``) — here as
+  ``FileNotFoundError`` / ``ValueError``.
+
+PyTorch-port counterpart of ``sparsematrixmultiplicationmpi_tpu/io/mtx.py``
+(pure numpy, identical parsing); the optional C++ parser of the JAX
+package is not ported, so ``read_matrix_market`` is the numpy reader.
+"""
+
+from __future__ import annotations
+
+import io as _io
+import os
+from typing import Tuple
+
+import numpy as np
+
+from ..formats.matrix import CSR
+
+__all__ = [
+    "read_matrix_market",
+    "read_matrix_market_numpy",
+    "write_matrix_market",
+]
+
+
+def _parse_header(path: str) -> Tuple[bool, bool, int, int, int, int]:
+    """Scan comments + size line. Returns
+    (symmetric, pattern, rows, cols, nnz, data_offset_bytes)."""
+    symmetric = False
+    pattern = False
+    skew = False
+    with open(path, "rb") as f:
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"Failed to read matrix dimensions from file: {path}")
+            text = line.decode("ascii", errors="replace")
+            stripped = text.strip()
+            if stripped.startswith("%"):
+                # Reference semantics: token substring search on comment
+                # lines (utils.cpp:90-99). Two documented divergences for
+                # real-fixture quirk kinds the reference would misparse:
+                # complex/hermitian files raise a clear error (the
+                # reference's stream extraction would silently misalign on
+                # the 4-column body, utils.cpp:124-146), and
+                # skew-symmetric mirrors with negated values per the MM
+                # spec (the reference's substring match would mirror with
+                # +value).
+                if "complex" in text or "hermitian" in text:
+                    raise ValueError(
+                        f"complex-valued Matrix Market files are not "
+                        f"supported: {path}"
+                    )
+                if "skew-symmetric" in text:
+                    skew = True
+                    symmetric = True
+                elif "symmetric" in text:
+                    symmetric = True
+                if "pattern" in text:
+                    pattern = True
+                continue
+            if not stripped:
+                # The reference would read garbage here; we skip blank lines
+                # (spec-conformant, documented divergence).
+                continue
+            parts = stripped.split()
+            if len(parts) < 3:
+                raise ValueError(
+                    f"Failed to read matrix dimensions from file: {path}"
+                )
+            rows, cols, nnz = int(parts[0]), int(parts[1]), int(parts[2])
+            return symmetric, pattern, skew, rows, cols, nnz, f.tell()
+
+
+def _parse_body_numpy(path: str, offset: int, nnz: int, pattern: bool):
+    """Vectorized triplet parse: returns (rows0, cols0, values) 0-based."""
+    ncols = 2 if pattern else 3
+    with open(path, "rb") as f:
+        f.seek(offset)
+        try:
+            import pandas as pd
+
+            table = pd.read_csv(
+                f, sep=r"\s+", header=None, dtype=np.float64, comment="%",
+                engine="c", float_precision="round_trip",
+            ).to_numpy()
+        except ImportError:
+            table = np.loadtxt(f, dtype=np.float64, comments="%", ndmin=2)
+    if table.ndim != 2 or table.shape[0] < nnz or table.shape[1] < ncols:
+        raise ValueError(f"Failed to read data from file: {path}")
+    table = table[:nnz]
+    rows = table[:, 0].astype(np.int64) - 1
+    cols = table[:, 1].astype(np.int64) - 1
+    values = (
+        np.ones(nnz, dtype=np.float64) if pattern else table[:, 2].copy()
+    )
+    return rows, cols, values
+
+
+def expand_and_build_csr(rows, cols, values, m, n, symmetric, dtype=None,
+                         mirror_sign: float = 1.0) -> CSR:
+    """COO triplets (0-based) -> CSR with reference expansion semantics.
+
+    ``mirror_sign=-1`` gives the skew-symmetric expansion (A^T = -A)."""
+    if symmetric:
+        off = rows != cols
+        mirror_rows, mirror_cols = cols[off], rows[off]
+        mirror_vals = values[off] * mirror_sign
+        rows = np.concatenate([rows, mirror_rows])
+        cols = np.concatenate([cols, mirror_cols])
+        values = np.concatenate([values, mirror_vals])
+    if len(rows) and (rows.min() < 0 or rows.max() >= m or cols.min() < 0 or cols.max() >= n):
+        raise ValueError("matrix entry index out of bounds")
+    # Sort by (row, col) via a combined int64 key — ~3x faster than lexsort
+    # for multi-million-nnz matrices and exact while m*n < 2^63.
+    order = np.argsort(rows * np.int64(n) + cols, kind="stable")
+    rows, cols, values = rows[order], cols[order], values[order]
+    row_ptr = np.cumsum(
+        np.bincount(rows + 1, minlength=m + 1)[: m + 1]
+    ).astype(np.int32)
+    if dtype is not None:
+        values = values.astype(dtype)
+    return CSR.from_arrays(values, cols.astype(np.int32), row_ptr, (m, n))
+
+
+def read_matrix_market_numpy(path: str, dtype=None) -> CSR:
+    """Pure numpy loader (reference parity; ``utils.cpp:70-185``)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Unable to open file: {path}")
+    symmetric, pattern, skew, m, n, nnz, offset = _parse_header(path)
+    rows, cols, values = _parse_body_numpy(path, offset, nnz, pattern)
+    return expand_and_build_csr(
+        rows, cols, values, m, n, symmetric, dtype,
+        mirror_sign=-1.0 if skew else 1.0,
+    )
+
+
+def read_matrix_market(path: str, dtype=None) -> CSR:
+    """Load a Matrix Market file into CSR (the numpy reader)."""
+    return read_matrix_market_numpy(path, dtype=dtype)
+
+
+def write_matrix_market(path: str, csr: CSR, symmetric: bool = False,
+                        pattern: bool = False, comment: str | None = None):
+    """Write CSR as a 1-based Matrix Market coordinate file.
+
+    When ``symmetric=True`` only the lower triangle (including diagonal) is
+    emitted, matching SuiteSparse convention; the loader mirrors it back.
+    """
+    coo = csr.to_coo()
+    rows = np.asarray(coo.row_indices)
+    cols = np.asarray(coo.col_indices)
+    values = np.asarray(coo.values)
+    if symmetric:
+        keep = rows >= cols
+        rows, cols, values = rows[keep], cols[keep], values[keep]
+    m, n = csr.shape
+    kind = "pattern" if pattern else "real"
+    sym = "symmetric" if symmetric else "general"
+    buf = _io.StringIO()
+    buf.write(f"%%MatrixMarket matrix coordinate {kind} {sym}\n")
+    if comment:
+        for line in comment.splitlines():
+            buf.write(f"% {line}\n")
+    buf.write(f"{m} {n} {len(rows)}\n")
+    if pattern:
+        np.savetxt(buf, np.stack([rows + 1, cols + 1], axis=1), fmt="%d %d")
+    else:
+        np.savetxt(
+            buf,
+            np.stack([rows + 1, cols + 1, values], axis=1),
+            fmt="%d %d %.17g",
+        )
+    with open(path, "w") as f:
+        f.write(buf.getvalue())
