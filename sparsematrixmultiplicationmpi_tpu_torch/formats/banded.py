@@ -16,8 +16,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from .matrix import BucketedELL, CSR, to_tensor
+from .matrix import BucketedELL, CSR, array_dtype, cast, to_tensor
 
 __all__ = ["BandedBlocks", "band_coverage"]
 
@@ -47,13 +48,56 @@ class BandedBlocks:
     est_seconds: float = float("inf")
 
     @property
+    def dtype(self) -> torch.dtype:
+        return array_dtype(self.band)
+
+    @property
     def n_blocks(self) -> int:
         return int(self.band.shape[0])
+
+    @property
+    def dense_bytes(self) -> int:
+        return int(np.prod(self.band.shape)) * self.dtype.itemsize
+
+    def astype(self, dtype) -> "BandedBlocks":
+        """The band and spill values cast to ``dtype`` (torch or numpy),
+        on the host or device where they lie."""
+        return dataclasses.replace(
+            self, band=cast(self.band, dtype),
+            spill=None if self.spill is None else self.spill.astype(dtype))
 
     def to(self, device) -> "BandedBlocks":
         return dataclasses.replace(
             self, band=to_tensor(self.band, device),
             spill=None if self.spill is None else self.spill.to(device))
+
+    def __matmul__(self, v: torch.Tensor) -> torch.Tensor:
+        from ..ops.banded import spmm_banded
+
+        return spmm_banded(self, v)
+
+    def to_dense(self) -> np.ndarray:
+        """The matrix as a host array (a bf16 band as float32) of a
+        host-side operand."""
+        m, n = self.shape
+        r = self.block_rows
+        band = to_tensor(self.band, "cpu")
+        if band.dtype == torch.bfloat16:
+            band = band.to(torch.float32)
+        band = band.numpy()
+        out = np.zeros((m, n), dtype=band.dtype)
+        for b in range(self.n_blocks):
+            rows_hi = min((b + 1) * r, m)
+            for s in range(3):
+                cols = (b - 1 + s) * r
+                lo, hi = max(cols, 0), min(cols + r, n)
+                if lo < hi:
+                    out[b * r: rows_hi, lo:hi] += band[
+                        b, : rows_hi - b * r,
+                        s * r + lo - cols: s * r + hi - cols]
+        if self.spill is not None:
+            out = out + self.spill.astype(out.dtype).to_dense()
+        return out
 
     @classmethod
     def from_csr(cls, csr: CSR, block_rows: Optional[int] = None, *,

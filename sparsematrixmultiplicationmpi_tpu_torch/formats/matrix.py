@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["CSR", "COO", "ELL", "BucketedELL", "coalesce_coo",
-           "split_csr_by_width", "to_tensor"]
+           "split_csr_by_width", "to_tensor", "array_dtype", "cast"]
 
 
 def to_tensor(x, device):
@@ -43,6 +43,30 @@ def to_tensor(x, device):
         return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(
             device)
     return torch.from_numpy(x).to(device)
+
+
+def array_dtype(x) -> torch.dtype:
+    """The torch dtype of a host (numpy) or device (torch) array; a
+    ``uint16`` host array is ``torch.bfloat16``."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    if x.dtype == np.uint16:
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, x.dtype)).dtype
+
+
+def cast(x, dtype):
+    """``x`` cast to ``dtype`` (a torch or numpy dtype) where it lies: a
+    tensor stays a tensor on its device, a host array a numpy array
+    (bfloat16 as ``uint16`` bits, rounded to nearest even)."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = array_dtype(np.zeros(0, dtype))
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    t = to_tensor(x, "cpu").to(dtype)
+    if dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def coalesce_coo(i, j, vals, n: int):
@@ -174,6 +198,9 @@ class ELL:
     def to(self, device) -> "ELL":
         return _move(self, device, ("cols", "vals"))
 
+    def astype(self, dtype) -> "ELL":
+        return dataclasses.replace(self, vals=cast(self.vals, dtype))
+
     @classmethod
     def from_csr(cls, csr: CSR, width: int | None = None,
                  row_align: int = 8, width_align: int = 1) -> "ELL":
@@ -223,6 +250,10 @@ class BucketedELL:
         moved = _move(self, device, ("row_perm", "inv_row_perm"))
         return dataclasses.replace(
             moved, buckets=tuple(b.to(device) for b in self.buckets))
+
+    def astype(self, dtype) -> "BucketedELL":
+        return dataclasses.replace(
+            self, buckets=tuple(b.astype(dtype) for b in self.buckets))
 
     @classmethod
     def from_csr(cls, csr: CSR, max_buckets: int = 10, row_align: int = 8,

@@ -1,17 +1,19 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/windowed_kernels.cu`` is compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes``. The library goes to ``build/kernels/`` at the root of the
-checkout, its file name carrying a hash of the source, so an edited
-source is rebuilt and an unchanged one is loaded as it is. A missing
-``nvcc`` or a failed build raises with the compiler's output; nothing
-falls back to the plain PyTorch versions.
+Every ``csrc/*.cu`` source is compiled at first use for ``sm_90a``, one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library goes to ``build/kernels/`` at the root of
+the checkout, its file name carrying a hash of all sources and the
+flags, so an edited source is rebuilt and an unchanged set is loaded as
+it is. A missing ``nvcc`` or a failed build raises with the compiler's
+output; nothing falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,10 +26,11 @@ __all__ = ["KernelBuildError", "load_library", "build_info", "find_nvcc",
            "check_launch"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "windowed_kernels.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -55,27 +58,50 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+def _sources() -> list:
+    """The kernel sources, ``csrc/*.cu``, in a fixed order."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
 def _build(nvcc: str) -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + b"\0" + f.read())
     lib_path = os.path.join(BUILD_DIR,
-                            f"libwindowed_{digest.hexdigest()[:16]}.so")
+                            f"libkernels_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib_path):
         build_info.update(seconds=0.0, path=lib_path, ptxas="(cached)")
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    reports = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, report in zip(srcs, procs, reports):
+            if p.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed (exit {p.returncode}) on {src}:\n{report}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed (exit {link.returncode}):\n"
+                f"{link.stderr}{link.stdout}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}) on {SOURCE}:\n"
-            f"{proc.stderr}{proc.stdout}")
     os.replace(tmp, lib_path)
     build_info.update(seconds=seconds, path=lib_path,
-                      ptxas=(proc.stderr + proc.stdout).strip())
+                      ptxas="\n".join(r.strip() for r in reports))
     return lib_path
 
 
@@ -91,7 +117,7 @@ def load_library() -> ctypes.CDLL:
             raise KernelBuildError(
                 "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
                 " the CUDA kernels of this package are built from "
-                f"{SOURCE} and have no fallback")
+                f"{CSRC_DIR}/*.cu and have no fallback")
         lib = ctypes.CDLL(_build(nvcc))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.tmulti_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -99,6 +125,9 @@ def load_library() -> ctypes.CDLL:
         lib.tmulti_launch.restype = i32
         lib.chunk_slabs_launch.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
         lib.chunk_slabs_launch.restype = i32
+        lib.band_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                    i32, ptr]
+        lib.band_launch.restype = i32
         lib.error_string.argtypes = [i32]
         lib.error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -141,19 +141,27 @@ def _auto_with_est(csr: CSR, reorder, format_kwargs, allow_hub: bool):
 def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
     """SpMM on the operand's format; the operand must be on ``v``'s
     device (``operand.to(v.device)``). CPU tensors take the plain paths,
-    CUDA tensors the kernels where the reference ran one."""
+    CUDA tensors the kernels where the reference ran one: B1/B2 for
+    windowed tiles, B5 for bands of ``block_rows <= 128``."""
     if isinstance(operand, WindowedPairs):
         from .windowed import spmm_windowed
 
         return spmm_windowed(operand, v)
     if isinstance(operand, BandedBlocks):
-        if v.device.type != "cpu" and operand.block_rows <= 128:
-            # The reference's accelerator route for narrow bands.
-            raise NotImplementedError(
-                "BandedBlocks with block_rows <= 128 on an accelerator runs "
-                "band kernel B5 (pallas_banded._band_kernel), not ported "
-                "yet")
-        return spmm_banded(operand, v)
+        from .cuda_banded import MAX_KERNEL_BLOCK_ROWS, spmm_banded_cuda
+
+        dev = v.device.type
+        if dev == "cuda" and operand.block_rows <= MAX_KERNEL_BLOCK_ROWS:
+            return spmm_banded_cuda(operand, v)  # kernel B5
+        if dev in ("cpu", "cuda"):
+            # Wider bands on the card take the batched matmuls: the
+            # reference's own measured routing (its einsum beat its band
+            # kernel at block_rows >= 256 on v5e), not a fallback. An H100
+            # measurement of this gate waits for the H100 cost model.
+            return spmm_banded(operand, v)
+        raise ValueError(
+            f"no band route for a tensor on {v.device}: CPU tensors take "
+            "spmm_banded, CUDA tensors kernel B5 or spmm_banded")
     if isinstance(operand, BucketedELL):
         return spmm_bucketed(operand, v)
     if isinstance(operand, COO):

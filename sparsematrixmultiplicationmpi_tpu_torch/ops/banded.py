@@ -2,9 +2,15 @@
 ``sparsematrixmultiplicationmpi_tpu/ops/banded.py``).
 
 Three batched matmuls over shifted block views (previous / own / next
-block), summed, plus the spill through ``spmm_bucketed``. This is the JAX
-package's XLA path; ``ops/auto.py::spmm_any`` keeps the reference's route
-to the band kernel B5 for accelerator operands with ``block_rows <= 128``.
+block), summed — B5's plain version, ``ops/cuda_banded.py::
+band_matmul_plain`` — plus the spill through ``spmm_bucketed``. This is
+the JAX package's XLA einsum path and the port's plain path: every CPU
+operand, and CUDA operands with ``block_rows > 128``, as the reference
+routes them (``ops/auto.py::spmm_any``). CUDA operands with
+``block_rows <= 128`` run kernel B5 instead
+(``ops/cuda_banded.py::spmm_banded_cuda``). Like the einsum, the result
+has ``v``'s dtype when ``v`` is 32 or 64 bits; the kernel route returns
+the band's dtype, as the reference's does.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.banded import BandedBlocks
+from .cuda_banded import band_matmul_plain
 from .ell import spmm_bucketed
 
 __all__ = ["spmm_banded"]
@@ -21,27 +28,10 @@ def spmm_banded(bb: BandedBlocks, v: torch.Tensor) -> torch.Tensor:
     """SpMM over band-dense storage (``bb`` on ``v``'s device). ``v`` is
     ``(n, k)``; returns ``(m, k)``."""
     m, n = bb.shape
-    r = bb.block_rows
-    nb = bb.n_blocks
-    k = v.shape[1]
-    # A bf16 band multiplies natively and accumulates in the fat
-    # vector's dtype; a narrow fat vector takes the band's.
+    # The result takes the fat vector's dtype, or the band's for a 16-bit
+    # fat vector; the band is cast to it, and the sums run in f32 or f64.
     out_dtype = v.dtype if v.element_size() >= 4 else bb.band.dtype
-
-    # v padded to (nb + 2) blocks: one leading halo block, trailing fill.
-    total = (nb + 2) * r
-    v_pad = v.new_zeros((total, k))
-    rows = min(v.shape[0], total - r)
-    v_pad[r: r + rows] = v[:rows]
-    v_blocks = v_pad.reshape(nb + 2, r, k)
-
-    band = bb.band.to(out_dtype)
-    out = v.new_zeros((nb, r, k), dtype=out_dtype)
-    for s in range(3):
-        out = out + torch.bmm(band[:, :, s * r: (s + 1) * r],
-                              v_blocks[s: s + nb].to(out_dtype))
-    out = out.reshape(nb * r, k)[:m]
-
+    out = band_matmul_plain(bb.band.to(out_dtype), v, m=m)
     if bb.spill is not None:
         out = out + spmm_bucketed(bb.spill, v[:n]).to(out_dtype)
     return out

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (B1, B2) against their plain
-PyTorch versions and the host f64 oracle.
+"""Card-only tests of the port's CUDA kernels (B1, B2, B5) against their
+plain PyTorch versions and the host f64 oracle.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; elsewhere each one
 skips from inside the ``cuda`` fixture. The file imports no JAX, so it
@@ -12,13 +12,23 @@ import numpy as np
 import pytest
 import torch
 
+from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+    spd_banded_system,
+)
+from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import (
+    BandedBlocks,
+)
+from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import COO
 from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
     WindowedPairs,
 )
 from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
-    banded_csr, fem3d_csr, generate_fat_vector,
+    banded_csr, fem3d_csr, generate_fat_vector, random_csr,
 )
+from sparsematrixmultiplicationmpi_tpu_torch.models import conjugate_gradient
+from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_banded as cb
 from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_windowed as cw
+from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
 from sparsematrixmultiplicationmpi_tpu_torch.ops.oracle import spmm_host_f64
 from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import (
     _finish, spmm_windowed, windowed_t_chain,
@@ -28,8 +38,11 @@ pytestmark = pytest.mark.gpu
 
 #: B1 against its plain version: both sum exact bf16 x bf16 products in
 #: f32, in another order; |diff| <= RTOL * cond + ATOL with cond the
-#: plain B1 on the planes' absolute values.
+#: plain B1 on the planes' absolute values. B5 the same, with cond the
+#: plain B5 on |band|, |v|; a bf16 band's result is rounded to bf16 once
+#: on each side, so its bound adds one bf16 ulp, BF16_ULP * |plain|.
 RTOL, ATOL = 1e-5, 1e-6
+BF16_ULP = 2.0 ** -7
 
 
 @pytest.fixture()
@@ -176,3 +189,96 @@ def test_chain_on_card_matches_oracle(cuda):
     err = np.abs(one_shot.cpu().double().numpy() - ref).max() / \
         np.abs(ref).max()
     assert err < 5e-3
+
+
+def _rel_to_oracle(out, csr, v):
+    ref = spmm_host_f64(csr, v)
+    return np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 6, 8, 32, 128])
+@pytest.mark.parametrize("r", [8, 128])
+def test_band_matmul_matches_plain(cuda, r, k, dtype):
+    nb = 5
+    rng = np.random.default_rng(r * 1000 + k)
+    band = rng.uniform(-1, 1, (nb, r, 3 * r)).astype(np.float32)
+    band[rng.uniform(size=band.shape) > 0.1] = 0.0
+    band = torch.from_numpy(band).to(cuda, dtype)
+    # A ragged end: v stops 3 rows short, the output 2 rows short.
+    v = torch.from_numpy(rng.uniform(-1, 1, (nb * r - 3, k)).astype(
+        np.float32)).to(cuda, dtype)
+    m = nb * r - 2
+    got = cb.band_matmul(band, v, m=m)
+    want = cb.band_matmul_plain(band, v, m=m)
+    cond = cb.band_matmul_plain(band.float().abs(), v.float().abs(), m=m)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (m, k)
+    assert got.dtype == want.dtype == dtype
+    bound = RTOL * cond + ATOL
+    if dtype == torch.bfloat16:
+        bound = bound + BF16_ULP * want.float().abs()
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+def test_band_spill_on_card_matches_plain_and_oracle(cuda):
+    """The spill family of ``tests/test_pallas.py``: B5 plus the spill."""
+    dense = (banded_csr(200, 4, 3, seed=133).to_dense()
+             + random_csr(200, 200, 250, seed=134).to_dense())
+    rows, cols = np.nonzero(dense)
+    csr = COO.from_arrays(dense[rows, cols], rows, cols,
+                          dense.shape).to_csr().astype(np.float32)
+    bb = BandedBlocks.from_csr(csr, block_rows=8)
+    assert bb.spill is not None
+    bb = bb.to(cuda)
+    v = generate_fat_vector(200, 5, seed=135).astype(np.float32)
+    cb.reset_launch_counts()
+    out = spmm_any(bb, torch.from_numpy(v).to(cuda))
+    assert cb.launch_counts() == {"B5": 1}
+    assert _rel_to_oracle(out, csr, v) < 1e-4
+
+
+def test_band_kernel_counts_launches_on_its_route_only(cuda):
+    csr = banded_csr(1024, 40, 8, seed=3).astype(np.float32)
+    v = torch.from_numpy(generate_fat_vector(1024, 8, seed=4).astype(
+        np.float32))
+    cb.reset_launch_counts()
+    for r in (128, 256):
+        out = spmm_any(BandedBlocks.from_csr(csr, block_rows=r).to(cuda),
+                       v.to(cuda))
+        assert _rel_to_oracle(out, csr, v.numpy()) < 5e-3
+    spmm_any(BandedBlocks.from_csr(csr, block_rows=128).to("cpu"), v)
+    assert cb.launch_counts() == {"B5": 1}  # r = 256 takes the plain path
+
+
+def test_band_matmul_rejects_what_the_kernel_does_not_take(cuda):
+    band = torch.zeros((2, 8, 24), device=cuda)
+    v = torch.zeros((16, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.band_matmul(band, torch.zeros((4, 16), device=cuda).T)
+    with pytest.raises(ValueError, match="v must be torch.float32"):
+        cb.band_matmul(band, v.double())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cb.band_matmul(band.double(), v.double())
+    with pytest.raises(ValueError, match="r <= 128"):
+        cb.band_matmul(torch.zeros((1, 256, 768), device=cuda),
+                       torch.zeros((256, 4), device=cuda))
+    cb.reset_launch_counts()
+    assert cb.band_matmul(band, v).shape == (16, 4)
+    assert cb.launch_counts() == {"B5": 1}
+
+
+def test_cg_on_card_runs_b5_once_per_iteration(cuda):
+    csr = spd_banded_system(4096, seed=2)
+    op = BandedBlocks.from_csr(csr, block_rows=128).to(cuda)
+    b = np.random.default_rng(3).normal(size=(4096, 8)).astype(np.float32)
+    cb.reset_launch_counts()
+    res = conjugate_gradient(lambda x: spmm_any(op, x),
+                             torch.from_numpy(b).to(cuda), tol=1e-5,
+                             max_iter=200)
+    assert cb.launch_counts() == {"B5": res.iterations + 1}
+    x = res.x.cpu().double().numpy()
+    resid = b - spmm_host_f64(csr, x)
+    assert (np.linalg.norm(resid, axis=0)
+            / np.linalg.norm(b, axis=0)).max() < 1e-4

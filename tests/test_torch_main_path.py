@@ -114,11 +114,13 @@ def test_spmm_any_on_coo_and_sequential_strategy():
 
 
 def test_unported_accelerator_routes_raise():
+    # A band on a device that is neither CPU nor CUDA has no route: it
+    # raises rather than taking the plain path quietly.
     band = TA.auto_format(TG.banded_csr(6000, 40, 12, seed=15).astype(
         np.float32), k_nominal=8)
     assert band.block_rows <= 128
     meta_v = torch.empty((6000, 8), device="meta")
-    with pytest.raises(NotImplementedError, match="B5"):
+    with pytest.raises(ValueError, match="no band route for a tensor on meta"):
         TA.spmm_any(band.to("meta"), meta_v)
     u2 = TW.WindowedPairs.from_csr(
         TG.fem3d_csr(1024, 16000, seed=8).astype(np.float32),
