@@ -31,11 +31,27 @@ with the fused next-state epilogue; dec). Phases:
    residual <= 1e-4, ``x`` within 5e-3 of a host f64 ``spsolve``, the
    iteration count within 1 of CG through the plain route; the
    per-iteration time from fixed-length solves and the amortized
-   ``run_benchmark`` rate.
+   ``run_benchmark`` rate;
+6. two-pair path: ``Auto(pairs_per_step=2)`` on the cop20k stand-in
+   (route R = C = 256, U = 2, 2,270 pairs, 474 blocks, a spill). B3
+   (split3) and B4 (f32, one plane) against their plain versions at
+   k = 32, B7 on each spill bucket against the take route, all within
+   ``1e-5 * cond + 1e-6``; then, with the counts zeroed, a one-shot
+   ``spmm_any`` with the spill through the take route, one with the
+   spill through B7 (``SPILL_DMA_GATHER``), and the amortized
+   ``run_benchmark`` (encode, iterate = B2 + B3 + spill, decode), each
+   against the f64 oracle. The same in bf16 (route R = C = 512, 1,098
+   pairs): B4 (bf16) against its plain version, one-shot and amortized
+   ``run_benchmark(dtype=bfloat16)`` in the bf16 tier;
+7. phased chain: ``Auto(phase_layout=True)`` (three phases, 448 chunks
+   per phase). B6 resident and streamed (B1 per phase) against the plain
+   version and each other; with the counts zeroed, a one-shot
+   ``spmm_any`` and the amortized ``run_benchmark`` (body = B6 +
+   ``resplit_slabs``), against the f64 oracle; one B6 launch per call.
 
 Prints the card's name and power limit, one JSON line with the main
-path's result, one with the solver path's, one with the kernels, and as
-the last line
+path's result, one with the solver path's, one for each of phases 6 and
+7, one with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails or no CUDA device is present. Imports no JAX.
 """
@@ -53,7 +69,17 @@ SRC = "sparsematrixmultiplicationmpi_tpu_torch/csrc/windowed_kernels.cu"
 REPLACES = {
     "B1": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:206",
     "B2": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:122",
+    "B3": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:95",
+    "B4": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:81",
+    "B6": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:421",
 }
+B7_SRC = "sparsematrixmultiplicationmpi_tpu_torch/csrc/gather_kernels.cu"
+B7_REPLACES = "sparsematrixmultiplicationmpi_tpu/ops/pallas_gather.py:42"
+#: The routes the JAX package's format search picks on the cop20k stand-in.
+U2_F32_ROUTE = dict(R=256, C=256, U=2, P=2270, nb=474, spill=True)
+U2_BF16_ROUTE = dict(R=512, C=512, U=2, P=1098)
+PHASES = ((0, 5456, 0, 0, 947), (5456, 4832, 448, 409, 495),
+          (10288, 480, 896, 887, 60))
 K = 32
 B1_RTOL, B1_ATOL = 1e-5, 1e-6
 B5_SRC = "sparsematrixmultiplicationmpi_tpu_torch/csrc/banded_kernels.cu"
@@ -447,6 +473,370 @@ def solver_phase(dev, power):
             "plain_ms": ms["plain_ms"]}
 
 
+def counted_auto(**format_kwargs):
+    """An ``Auto(**format_kwargs)`` whose chain bodies are counted in its
+    ``body_calls``."""
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
+
+    class CountedAuto(Auto):
+        body_calls = 0
+
+        def chain_parts(self, operand):
+            enc, body, dec = super().chain_parts(operand)
+
+            def counted_body(x, op):
+                self.body_calls += 1
+                return body(x, op)
+
+            return enc, counted_body, dec
+
+    return CountedAuto(**format_kwargs)
+
+
+def oracle_parts(csr, v_host):
+    """The host f64 oracle of ``csr @ v_host`` and its conditioning
+    ``sum |a_ij v_jk|`` (bf16 bits decoded)."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        as_float64,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.oracle import (
+        spmm_host_f64,
+    )
+
+    abs_csr = type(csr)(values=np.abs(as_float64(csr.values)),
+                        col_indices=csr.col_indices, row_ptr=csr.row_ptr,
+                        shape=csr.shape)
+    return (spmm_host_f64(csr, v_host),
+            spmm_host_f64(abs_csr, np.abs(as_float64(v_host))))
+
+
+def matches_oracle(out, oracle, cond, dtype) -> bool:
+    """``out`` against the f64 oracle in ``dtype``'s tier, as
+    ``run_benchmark`` checks."""
+    from sparsematrixmultiplicationmpi_tpu_torch.utils.compare import (
+        are_matrices_equal, default_tolerance,
+    )
+
+    return are_matrices_equal(out.cpu().double().numpy(), oracle,
+                              tolerance=default_tolerance(dtype),
+                              relative=True, condition_scale=cond)
+
+
+def kernel_vs_plain(label, kernel, plain, tiles, slabs, n=50):
+    """``kernel()`` against ``plain(tiles, slabs)`` at the path's shapes,
+    within ``1e-5 * cond + 1e-6`` (``cond`` = the plain version on
+    ``|tiles|``, ``|slabs|``), and both timed. Returns the kernels-line
+    numbers of one kernel."""
+    got = kernel()
+    want = plain(tiles, slabs)
+    cond = plain(tiles.abs(), slabs.abs())
+    excess, err = b1_error(got, want, cond)
+    print(f"{label} {tuple(got.shape)} max_abs_err={err} "
+          f"tolerance_excess={excess}")
+    check(excess <= 0, f"{label} outside tolerance of its plain version")
+    del got, want, cond
+    return {"max_abs_err": err, "ms": cuda_ms(kernel, n),
+            "plain_ms": cuda_ms(lambda: plain(tiles, slabs), 5, warmup=1)}
+
+
+def windowed_route(wp) -> dict:
+    return dict(R=wp.block_rows, C=wp.chunk_cols, U=wp.pairs_per_step,
+                P=wp.n_pairs, nb=wp.n_blocks, spill=wp.spill is not None)
+
+
+def entry(name, label, src, replaces, launches, numbers, **extra):
+    return {"name": f"{name} {label}", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"], **extra}
+
+
+def two_pair_phase(dev, csr, power):
+    """Phase 6: the U=2 windowed path on the cop20k stand-in, f32 (B2 +
+    B3, spill by take or by B7) and bf16 (B2 + B4). Returns the B3, B4
+    and B7 entries of the kernels line."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
+        run_benchmark,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import cast
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_gather as cg, cuda_windowed as cw, ell as ell_ops,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
+
+    # 6.1 route
+    t0 = time.perf_counter()
+    wp = Auto(pairs_per_step=2).prepare(csr, dev)
+    torch.cuda.synchronize()
+    route = windowed_route(wp)
+    print(f"two-pair f32: prepare {time.perf_counter() - t0:.2f} s; route "
+          f"{route}")
+    check(route == U2_F32_ROUTE, f"unexpected two-pair route {route}")
+    print(f"spill buckets {[tuple(b.cols.shape) for b in wp.spill.buckets]}")
+    C, nb = wp.chunk_cols, wp.n_blocks
+    v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
+    v = torch.from_numpy(v_host).to(dev)
+    v_p = wp.encode(v).contiguous()
+    pb, pc, bp = wp.pair_block, wp.pair_chunk, wp.block_ptr
+
+    # 6.2 B3, B4 (f32) and B7 against their plain versions
+    slabs = cw.chunk_slabs(v_p, C=C, split=True)
+    b3 = kernel_vs_plain(
+        "B3 windowed_matmul_split3",
+        lambda: cw.windowed_matmul_split3(pb, pc, bp, wp.tiles_split, slabs,
+                                          nb=nb),
+        lambda t, s: cw.windowed_matmul_split3_plain(pb, pc, t, s, nb=nb),
+        wp.tiles_split, slabs)
+    tiles32 = (wp.tiles_split[..., :C].float()
+               + wp.tiles_split[..., C:].float())
+    slabs32 = cw.chunk_slabs(v_p, C=C, split=False)
+    b4_f32 = kernel_vs_plain(
+        "B4 windowed_matmul_single f32",
+        lambda: cw.windowed_matmul_single(pb, pc, bp, tiles32, slabs32,
+                                          nb=nb),
+        lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
+        tiles32, slabs32)
+    del slabs, tiles32, slabs32
+    buckets = wp.spill.buckets
+    vals32 = [b.vals.float().contiguous() for b in buckets]
+    errs = []
+    for b, vals in zip(buckets, vals32):
+        got = cg.ell_gather_rows(b.cols, vals, v_p)
+        take = ell_ops.spmm_ell(b, v_p, unpad=False, dma_gather=False)
+        cond = cg.ell_gather_rows_plain(b.cols, vals.abs(), v_p.abs())
+        excess, err = b1_error(got, take, cond)
+        print(f"B7 ell_gather_rows bucket {tuple(b.cols.shape)} vs the take "
+              f"route: max_abs_err={err} tolerance_excess={excess}")
+        check(excess <= 0, "B7 outside tolerance of the take route")
+        errs.append(err)
+
+    def gather_all(fn):
+        return lambda: [fn(b.cols, vals, v_p)
+                        for b, vals in zip(buckets, vals32)]
+
+    b7 = {"max_abs_err": max(errs),
+          "ms": cuda_ms(gather_all(cg.ell_gather_rows), 200),
+          "plain_ms": cuda_ms(gather_all(cg.ell_gather_rows_plain), 50)}
+    take_ms = cuda_ms(lambda: [ell_ops.spmm_ell(b, v_p, unpad=False,
+                                                dma_gather=False)
+                               for b in buckets], 50)
+    print(f"B7 all {len(buckets)} buckets {b7['ms']} ms, plain "
+          f"{b7['plain_ms']} ms, take route {take_ms} ms")
+    del vals32
+
+    # 6.3 main path, counted: one-shot (take, then B7), amortized chain
+    oracle, cond = oracle_parts(csr, v_host)
+    torch.cuda.synchronize()
+    cw.reset_launch_counts()
+    cg.reset_launch_counts()
+    one_take = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
+    ell_ops.SPILL_DMA_GATHER = True
+    try:
+        one_dma = matches_oracle(spmm_any(wp, v), oracle, cond,
+                                 torch.float32)
+    finally:
+        ell_ops.SPILL_DMA_GATHER = False
+    n_buckets = len(buckets)
+    del wp, v_p, buckets
+    strat = counted_auto(pairs_per_step=2)
+    rec = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
+                        warmup=2, iters=5, oracle=oracle, check=True,
+                        dtype=np.float32, amortized=True, inner=20)
+    torch.cuda.synchronize()
+    counts = {**cw.launch_counts(), **cg.launch_counts()}
+    print(f"two-pair f32 one-shot spmm_any: take route correct={one_take}, "
+          f"B7 route correct={one_dma}; amortized {rec.execution_time * 1e3}"
+          f" ms per multiply, {rec.gnnz_per_s} Gnnz/s, correct={rec.correct}"
+          f"; launch counts {counts}; chain body calls {strat.body_calls}")
+    check(one_take and one_dma, "two-pair one-shot disagrees with the oracle")
+    check(rec.correct is True, "two-pair amortized path disagrees with oracle")
+    check(rec.execution_time == rec.execution_time,
+          "two-pair chained iterate time did not resolve")
+    calls = 2 + strat.body_calls
+    check(strat.body_calls > 0 and counts["B3"] == calls
+          and counts["B2"] == calls and counts["B7"] == n_buckets
+          and counts["B1"] == counts["B4"] == counts["B6"] == 0,
+          f"two-pair launch counts {counts} != {calls} B2/B3 (2 one-shot + "
+          f"{strat.body_calls} bodies) and {n_buckets} B7")
+    f32 = {"gnnz_per_s": rec.gnnz_per_s, "execution_time_s":
+           rec.execution_time, "correct": rec.correct,
+           "one_shot_take_correct": one_take, "one_shot_b7_correct": one_dma,
+           "max_error": rec.max_error, "launches": counts}
+    b3_launches, b7_launches = counts["B3"], counts["B7"]
+
+    # 6.4 bf16: route, B4 against its plain version, main path counted
+    csr_bf = csr.astype(torch.bfloat16)
+    t0 = time.perf_counter()
+    wpb = Auto(pairs_per_step=2).prepare(csr_bf, dev)
+    torch.cuda.synchronize()
+    route_bf = windowed_route(wpb)
+    print(f"two-pair bf16: prepare {time.perf_counter() - t0:.2f} s; route "
+          f"{route_bf}")
+    check({k: route_bf[k] for k in U2_BF16_ROUTE} == U2_BF16_ROUTE,
+          f"unexpected bf16 two-pair route {route_bf}")
+    vb = v.to(torch.bfloat16)  # integers 1..100: exact in bf16
+    slabs_b = cw.chunk_slabs(wpb.encode(vb).contiguous(), C=wpb.chunk_cols,
+                             split=False)
+    pb, pc, bp, nb = (wpb.pair_block, wpb.pair_chunk, wpb.block_ptr,
+                      wpb.n_blocks)
+    b4 = kernel_vs_plain(
+        "B4 windowed_matmul_single bf16",
+        lambda: cw.windowed_matmul_single(pb, pc, bp, wpb.tiles, slabs_b,
+                                          nb=nb),
+        lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
+        wpb.tiles, slabs_b)
+    del slabs_b
+    oracle_bf, cond_bf = oracle_parts(csr_bf, cast(v_host, torch.bfloat16))
+    torch.cuda.synchronize()
+    cw.reset_launch_counts()
+    one_bf = matches_oracle(spmm_any(wpb, vb), oracle_bf, cond_bf,
+                            torch.bfloat16)
+    del wpb
+    strat = counted_auto(pairs_per_step=2)
+    rec_bf = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
+                           warmup=2, iters=5, oracle=oracle_bf, check=True,
+                           dtype=torch.bfloat16, amortized=True, inner=20)
+    torch.cuda.synchronize()
+    counts_bf = cw.launch_counts()
+    print(f"two-pair bf16 one-shot spmm_any correct={one_bf}; amortized "
+          f"{rec_bf.execution_time * 1e3} ms per multiply, "
+          f"{rec_bf.gnnz_per_s} Gnnz/s, correct={rec_bf.correct}, dtype "
+          f"{rec_bf.dtype}; launch counts {counts_bf}; chain body calls "
+          f"{strat.body_calls}")
+    check(one_bf, "bf16 two-pair one-shot disagrees with the oracle")
+    check(rec_bf.correct is True and rec_bf.dtype == "bfloat16",
+          "bf16 two-pair amortized path disagrees with the oracle")
+    check(rec_bf.execution_time == rec_bf.execution_time,
+          "bf16 two-pair chained iterate time did not resolve")
+    calls = 1 + strat.body_calls
+    check(strat.body_calls > 0 and counts_bf["B4"] == calls
+          and counts_bf["B2"] == calls and counts_bf["B3"] == 0,
+          f"bf16 two-pair launch counts {counts_bf} != {calls} B2/B4")
+    print(json.dumps({
+        "path": "cop20k_u2_k32", "route_f32": route, "route_bf16": route_bf,
+        "f32": f32, "bf16": {
+            "gnnz_per_s": rec_bf.gnnz_per_s,
+            "execution_time_s": rec_bf.execution_time,
+            "correct": rec_bf.correct, "one_shot_correct": one_bf,
+            "max_error": rec_bf.max_error, "launches": counts_bf},
+        "b7_all_buckets_ms": b7["ms"], "take_route_ms": take_ms,
+        "power": power}))
+    return [
+        entry("B3", "windowed_matmul_split3", SRC, REPLACES["B3"],
+              b3_launches, b3),
+        entry("B4", "windowed_matmul_single (bf16)", SRC, REPLACES["B4"],
+              counts_bf["B4"], b4, f32_max_abs_err=b4_f32["max_abs_err"],
+              f32_ms=b4_f32["ms"], f32_plain_ms=b4_f32["plain_ms"]),
+        entry("B7", "ell_gather_rows (all spill buckets)", B7_SRC,
+              B7_REPLACES, b7_launches, b7, take_route_ms=take_ms),
+    ]
+
+
+def phased_phase(dev, csr, power):
+    """Phase 7: the phased resident layout on the cop20k stand-in, chain
+    body B6 + ``resplit_slabs``. Returns the B6 entry of the kernels
+    line."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
+        run_benchmark,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
+
+    t0 = time.perf_counter()
+    wp = Auto(phase_layout=True).prepare(csr, dev)
+    torch.cuda.synchronize()
+    route = windowed_route(wp)
+    print(f"phased: prepare {time.perf_counter() - t0:.2f} s; route {route};"
+          f" phases {wp.phases}; chunks_per_phase {wp.chunks_per_phase}; "
+          f"tiles_t {tuple(wp.tiles_t.shape)} {wp.tiles_t.dtype}")
+    check(wp.phases == PHASES and wp.chunks_per_phase == 448
+          and tuple(wp.tiles_t.shape) == (10768, 256, 128)
+          and wp.tiles_t.dtype == torch.bfloat16 and route["U"] == 16
+          and wp.supports_transposed_chain,
+          f"unexpected phased route {route} {wp.phases}")
+    v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
+    v = torch.from_numpy(v_host).to(dev)
+    slabs = cw.chunk_slabs(wp.encode(v).contiguous(), C=wp.chunk_cols,
+                           split=True)
+    args = (wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, wp.tiles_t,
+            slabs)
+    kw = dict(nb=wp.n_blocks, phases=wp.phases,
+              chunks_per_phase=wp.chunks_per_phase, pairs_per_step=16)
+
+    def plain(t, s):
+        return cw.windowed_matmul_tmulti_phased_plain(
+            wp.pair_block_ph, wp.pair_chunk_ph, t, s, nb=wp.n_blocks,
+            phases=wp.phases)
+
+    b6 = kernel_vs_plain(
+        "B6 windowed_matmul_tmulti_phased resident",
+        lambda: cw.windowed_matmul_tmulti_phased(*args, **kw), plain,
+        wp.tiles_t, slabs)
+    streamed = kernel_vs_plain(
+        "B6 windowed_matmul_tmulti_phased streamed (B1 per phase)",
+        lambda: cw.windowed_matmul_tmulti_phased(*args, force_streamed=True,
+                                                 **kw), plain,
+        wp.tiles_t, slabs)
+    same = torch.equal(cw.windowed_matmul_tmulti_phased(*args, **kw),
+                       cw.windowed_matmul_tmulti_phased(
+                           *args, force_streamed=True, **kw))
+    print(f"B6 resident bitwise equal to the streamed route: {same}; "
+          f"resident {b6['ms']} ms, streamed {streamed['ms']} ms, plain "
+          f"{b6['plain_ms']} ms")
+    check(same, "B6 resident and streamed routes differ")
+    del slabs, args
+
+    phases = wp.phases
+    oracle, cond = oracle_parts(csr, v_host)
+    torch.cuda.synchronize()
+    cw.reset_launch_counts()
+    one = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
+    del wp
+    strat = counted_auto(phase_layout=True)
+    rec = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
+                        warmup=2, iters=5, oracle=oracle, check=True,
+                        dtype=np.float32, amortized=True, inner=20)
+    torch.cuda.synchronize()
+    counts = cw.launch_counts()
+    print(f"phased one-shot spmm_any correct={one}; amortized "
+          f"{rec.execution_time * 1e3} ms per multiply, {rec.gnnz_per_s} "
+          f"Gnnz/s, correct={rec.correct}; launch counts {counts}; chain "
+          f"body calls {strat.body_calls}")
+    check(one, "phased one-shot disagrees with the oracle")
+    check(rec.correct is True, "phased amortized path disagrees with oracle")
+    check(rec.execution_time == rec.execution_time,
+          "phased chained iterate time did not resolve")
+    check(strat.body_calls > 0 and counts["B6"] == 1 + strat.body_calls
+          and counts["B2"] == 2 and counts["B1"] == 0,
+          f"phased launch counts {counts} != {1 + strat.body_calls} B6 "
+          "(1 one-shot + the chain bodies) and 2 B2")
+    print(json.dumps({
+        "path": "cop20k_phased_k32", "route": route,
+        "phases": [list(ph) for ph in phases],
+        "gnnz_per_s": rec.gnnz_per_s, "execution_time_s": rec.execution_time,
+        "correct": rec.correct, "one_shot_correct": one,
+        "max_error": rec.max_error, "launches": counts,
+        "b6_resident_ms": b6["ms"], "b6_streamed_ms": streamed["ms"],
+        "power": power}))
+    return entry("B6", "windowed_matmul_tmulti_phased", SRC, REPLACES["B6"],
+                 counts["B6"], b6, streamed_ms=streamed["ms"],
+                 streamed_max_abs_err=streamed["max_abs_err"])
+
+
 def main() -> int:
     import torch
 
@@ -534,18 +924,7 @@ def main() -> int:
                         shape=csr.shape)
     cond = spmm_host_f64(abs_csr, np.abs(v_host))
     tol = default_tolerance(np.dtype(np.float32))
-    body_calls = [0]
-
-    class CountedAuto(Auto):
-        def chain_parts(self, operand):
-            enc, body, dec = super().chain_parts(operand)
-
-            def counted_body(x, op):
-                body_calls[0] += 1
-                return body(x, op)
-
-            return enc, counted_body, dec
-
+    strat = counted_auto()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cw.reset_launch_counts()
@@ -553,7 +932,7 @@ def main() -> int:
     one_shot_ok = are_matrices_equal(one_shot, oracle, tolerance=tol,
                                      relative=True, condition_scale=cond)
     del wp
-    rec = run_benchmark(csr, K, CountedAuto(), dev,
+    rec = run_benchmark(csr, K, strat, dev,
                         matrix_name="cop20k_like", warmup=2, iters=5,
                         oracle=oracle, check=True, dtype=np.float32,
                         amortized=True, inner=20)
@@ -562,7 +941,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     print(f"one-shot spmm_any: correct={one_shot_ok} "
           f"max_abs_err={max_abs_error(one_shot, oracle)}")
-    print(f"launch counts {counts}; chain body calls {body_calls[0]}")
+    print(f"launch counts {counts}; chain body calls {strat.body_calls}")
     result = {
         "metric": "spmm_gnnz_per_s_cop20k_k32",
         "value": rec.gnnz_per_s, "unit": "Gnnz/s",
@@ -580,23 +959,25 @@ def main() -> int:
     check(rec.correct is True, "amortized main path disagrees with oracle")
     check(rec.execution_time == rec.execution_time,
           "chained iterate time did not resolve")
-    check(counts["B1"] == 1 + body_calls[0] and body_calls[0] > 0,
-          f"B1 launches {counts['B1']} != 1 one-shot + {body_calls[0]} "
+    check(counts["B1"] == 1 + strat.body_calls and strat.body_calls > 0,
+          f"B1 launches {counts['B1']} != 1 one-shot + {strat.body_calls} "
           "chain bodies")
     check(counts["B2"] == 2, f"B2 launches {counts['B2']} != 2 "
           "(one-shot relayout + chain encode)")
 
-    kernels = [
-        {"name": f"{name} {label}", "route": "cuda", "source": SRC,
-         "replaces": REPLACES[name], "launches": counts[name],
-         "max_abs_err": timings[name]["max_abs_err"],
-         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"]}
-        for name, label in (("B1", "windowed_matmul_tmulti"),
-                            ("B2", "chunk_slabs"))]
+    kernels = [entry(name, label, SRC, REPLACES[name], counts[name],
+                     timings[name])
+               for name, label in (("B1", "windowed_matmul_tmulti"),
+                                   ("B2", "chunk_slabs"))]
     print(f"B1 unfused ms {timings['B1']['unfused_ms']}")
 
     # 5. solver path
     kernels.append(solver_phase(dev, power))
+
+    # 6. two-pair path (B3, B4, B7), 7. phased chain (B6)
+    kernels.extend(two_pair_phase(dev, csr, power))
+    kernels.append(phased_phase(dev, csr, power))
+    kernels.sort(key=lambda e: e["name"])
     if "jax" in sys.modules:
         raise PhaseFailed("the port imported jax")
     print(json.dumps({"kernels": kernels}))

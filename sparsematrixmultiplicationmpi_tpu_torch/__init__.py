@@ -2,8 +2,8 @@
 framework (``sparsematrixmultiplicationmpi_tpu``).
 
 Host-side builders are numpy and bit-identical to the JAX package; device
-code is PyTorch, with the main path's kernels written by hand for Hopper
-(``csrc/windowed_kernels.cu``, built with ``nvcc`` at first use). A CPU
+code is PyTorch, with every Pallas kernel of the JAX package written by
+hand for Hopper (``csrc/*.cu``, built with ``nvcc`` at first use). A CPU
 tensor takes each kernel's plain PyTorch version, a CUDA tensor the
 kernel. The package never imports JAX.
 """

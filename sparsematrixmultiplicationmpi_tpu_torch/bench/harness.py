@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..formats.matrix import CSR
+from ..formats.matrix import CSR, array_dtype, as_float64, cast, to_tensor
 from ..io.generate import generate_fat_vector
 from ..parallel.strategies import Strategy
 from ..utils.compare import (
@@ -122,8 +122,9 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
     nnz = csr.nnz
     kind = device_kind(device)
     sol = roofline_seconds(nnz, m, n, k, csr.values.dtype, kind)
-    v_host = generate_fat_vector(n, k, seed=seed).astype(csr.values.dtype)
-    v = torch.from_numpy(v_host).to(device)
+    # ``cast``, not ``astype``: a bf16 matrix's values are uint16 bits.
+    v_host = cast(generate_fat_vector(n, k, seed=seed), csr.values.dtype)
+    v = to_tensor(v_host, device)
 
     t0 = time.perf_counter()
     operand = strategy.prepare(csr, device)
@@ -161,11 +162,11 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
             # Forward-error conditioning of each output element,
             # sum |a_ij * v_jk| (utils/compare.py::are_matrices_equal).
             abs_csr = dataclasses.replace(
-                csr, values=np.abs(np.asarray(csr.values)))
-            cond = spmm_host_f64(abs_csr, np.abs(v_host))
+                csr, values=np.abs(as_float64(csr.values)))
+            cond = spmm_host_f64(abs_csr, np.abs(as_float64(v_host)))
         err = max_abs_error(out, oracle)
         correct = are_matrices_equal(
-            out, oracle, tolerance=default_tolerance(csr.values.dtype),
+            out, oracle, tolerance=default_tolerance(array_dtype(csr.values)),
             relative=relative, condition_scale=cond)
 
     resolved = best == best and best > 0
@@ -177,6 +178,7 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
         gflops=2.0 * nnz * k / best / 1e9 if resolved else float("nan"),
         gnnz_per_s=nnz / best / 1e9 if resolved else float("nan"),
         roofline_fraction=sol / best if resolved else None,
-        dtype=str(csr.values.dtype), device_kind=kind,
+        dtype=str(array_dtype(csr.values)).removeprefix("torch."),
+        device_kind=kind,
         time_upper_bound=upper_bound,
     )

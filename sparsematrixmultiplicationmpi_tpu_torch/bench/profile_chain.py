@@ -1,18 +1,24 @@
 """Where the chained iterate's time goes, by ``torch.profiler``.
 
-    python -m sparsematrixmultiplicationmpi_tpu_torch.bench.profile_chain
+    python -m sparsematrixmultiplicationmpi_tpu_torch.bench.profile_chain \
+        [--pairs-per-step 2] [--phase-layout] [--dtype bfloat16] \
+        [--spill-dma-gather]
 
-Builds the cop20k_A stand-in (f32) on the first CUDA device through
-``Auto``, encodes a k = 32 fat vector once, then runs 50 back-to-back
-chain bodies twice: on the host clock alone (milliseconds per body, gaps
-between launches included) and under ``torch.profiler`` (each kernel's
-device time, and the share of the profiled window in which the device
-was busy). Prints the profiler's table, then one JSON line. Needs a CUDA
-device.
+Builds the cop20k_A stand-in on the first CUDA device through ``Auto``
+(the options go to its format search, or, for ``--spill-dma-gather``,
+route the spill through kernel B7), encodes a k = 32 fat vector once,
+then runs 50 back-to-back chain bodies twice: on the host clock alone
+(milliseconds per body, gaps between launches included) and under
+``torch.profiler`` (each kernel's device time, and the share of the
+profiled window in which the device was busy; the ``aten::`` and CUDA
+runtime rows repeat their kernels' time and are left out of the sum).
+Prints the profiler's
+table, then one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -22,24 +28,38 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..formats.matrix import to_tensor
 from ..io.generate import cop20k_like, generate_fat_vector
+from ..ops import ell
 from ..parallel.strategies import Auto
 
 
 N, K = 50, 32
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pairs-per-step", type=int, default=None)
+    ap.add_argument("--phase-layout", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--spill-dma-gather", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    csr = cop20k_like(dtype=np.float32)
-    strategy = Auto()
+    dtype = getattr(torch, args.dtype)
+    csr = cop20k_like(dtype=np.float32).astype(dtype)
+    format_kwargs = {"phase_layout": args.phase_layout}
+    if args.pairs_per_step is not None:
+        format_kwargs["pairs_per_step"] = args.pairs_per_step
+    ell.SPILL_DMA_GATHER = args.spill_dma_gather
+    strategy = Auto(**format_kwargs)
     op = strategy.prepare(csr, dev)
     enc, body, _ = strategy.chain_parts(op)
-    v = torch.from_numpy(generate_fat_vector(csr.shape[1], K)
-                         .astype(np.float32)).to(dev)
+    v = to_tensor(generate_fat_vector(csr.shape[1], K).astype(np.float32),
+                  dev).to(dtype)
     state = enc(v, op)
 
     def run():
@@ -60,14 +80,18 @@ def main() -> int:
     print(averages.table(sort_by="self_device_time_total", row_limit=8))
     kernels = {e.key: {"count": e.count,
                        "us_per_launch": e.self_device_time_total / e.count}
-               for e in averages if e.self_device_time_total > 0}
-    busy_ms = sum(e.self_device_time_total for e in averages) / 1e3
+               for e in averages if e.self_device_time_total > 0
+               and not e.key.startswith(("aten::", "cuda"))}
+    busy_ms = sum(k["count"] * k["us_per_launch"]
+                  for k in kernels.values()) / 1e3
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     print(json.dumps({
         "device": smi.stdout.strip() or torch.cuda.get_device_name(dev),
+        "format": {**format_kwargs, "dtype": args.dtype,
+                   "spill_dma_gather": args.spill_dma_gather},
         "n": N, "k": K,
         "host_ms_per_body": host_ms,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,

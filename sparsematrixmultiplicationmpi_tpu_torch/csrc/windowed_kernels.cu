@@ -52,6 +52,64 @@
 //   cop20k at k = 32; ~10 us at HBM rate). One CTA per 128-row x 32-column
 //   tile of a chunk: reads coalesced along k, transposes through padded
 //   shared memory (stride 33, no bank conflicts), writes coalesced along C.
+//
+// B6  tmulti_phased_launch — replaces pallas_windowed.py:
+//     _kernel_tmulti_resident (via _phase_call and
+//     windowed_matmul_tmulti_phased).
+//
+//   B1's math over a PHASE-major pair list: phase i covers pairs
+//   [pair_off_i, +n_i), chunk window [chunk_lo_i, +cpp) and row blocks
+//   [block_lo_i, +nb_ph_i); its block and chunk ids are phase-local. The
+//   output is one (k8 x R) f32 partial per (phase, local block), in phase
+//   order; the wrapper adds the partials of each block in phase order
+//   (deterministic, no atomics).
+//
+//   The TPU kernel holds a phase's whole slab window in VMEM, loaded once
+//   per phase call. On the H100 a window (7.3 MB on cop20k at k = 32) is
+//   far past the 228 KB of shared memory of an SM but fits the 50 MB L2,
+//   so here "resident" means resident in L2 by access order: one launch
+//   covers every phase, CTA x is the x-th (phase, local block) in phase
+//   order, so the CTAs in flight at any time work on one or two phases'
+//   windows and re-read their slabs from L2. Inside a CTA the work is
+//   B1's (same device function, same tile stream, same bound: the
+//   tiles_t stream, 705.7 MB per cop20k multiply).
+//
+// B3  natural_launch mode 0 — replaces pallas_windowed.py:_kernel_split3
+//     (wrapper windowed_matmul_split3).
+// B4  natural_launch modes 1, 2 — replaces pallas_windowed.py:
+//     _kernel_plain (wrapper windowed_matmul_pallas).
+//
+//   Natural layout: out[b] (R x k8, f32) = sum over the pairs p of block b
+//   of tile[p] (R x C) . slab[pair_chunk[p]]^T (slab k8 x C).
+//   Mode 0 (B3): bf16 hi|lo planes packed along the last axis of both
+//   operands, th.sh + tl.sh + th.sl with f32 accumulation. Mode 1 (B4,
+//   bf16): one bf16 plane, f32 accumulation. Mode 2 (B4, f32): f32 tiles
+//   and slabs in full f32 FMA (the reference's Precision.HIGHEST, no
+//   TF32).
+//
+//   The TPU grid walks two pairs per step and zeroes the output block on
+//   its first step, so the build pads each block's run to even length.
+//   Here one CTA owns (block b, <= 128 tile rows, <= 32 columns of k) and
+//   walks b's run [block_ptr[b], block_ptr[b+1]) with the accumulator in
+//   registers: even runs are not needed (the wrapper still checks the
+//   reference's even pair count), an empty run writes zeros.
+//
+//   What bounds it on the H100: the tile stream (cop20k U = 2 f32, R = C
+//   = 256: 2,270 split tiles, 595 MB, >= 0.178 ms at 3.35 TB/s; bf16 R =
+//   C = 512: 1,098 tiles, 576 MB). The products run on the tensor cores
+//   (mma.sync m16n8k16, bf16 in, f32 accumulate; exact products), which
+//   suits this layout directly: the tile (R x C row-major) is the A
+//   operand (M = R, K = C), the slab (k8 x C row-major) the B operand in
+//   mma's col layout (N = k8). A tile is staged in 128-column K-slices
+//   (a 256 x 512 split tile is 512 KB, past any CTA's shared memory):
+//   128 rows x 128 columns per plane, 16-byte cp.async, rows padded by 16
+//   bytes so ldmatrix (tile) and the 32-bit slab fragment loads are free
+//   of bank conflicts; two CTAs share an SM, so one computes while the
+//   other loads. Each of the 8 warps owns 16 tile rows (one m16 tile) and
+//   all <= 32 columns of k. R = 8 fills half an m16 tile: the other rows
+//   are zero in shared memory and their outputs are dropped. Mode 2 runs
+//   on CUDA cores: 32-column f32 K-slices transposed into shared memory,
+//   each thread a 4 x 4 block of outputs from two float4 loads per step.
 // ---------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -122,13 +180,17 @@ constexpr int tmulti_smem_bytes() {
          static_cast<int>(sizeof(__nv_bfloat16));
 }
 
+// One CTA's share of an output block of B1 / B6: the pairs [p_begin,
+// p_end) (indices into tiles_t and pair_chunk), slabs at chunk_base +
+// pair_chunk[p], the sum written as output block `b` (k8 x R f32, or the
+// fused bf16 [hi | lo] state k8 x 2R). blockIdx.y / .z pick the k8 and R
+// slices.
 template <bool SPLIT, bool FUSE>
-__global__ void __launch_bounds__(kThreads, 2)
-tmulti_kernel(const int* __restrict__ block_ptr,
-              const int* __restrict__ pair_chunk,
-              const __nv_bfloat16* __restrict__ tiles_t,
-              const __nv_bfloat16* __restrict__ slabs,
-              void* __restrict__ out, int C, int R, int k8) {
+__device__ __forceinline__ void tmulti_block(
+    int p_begin, int p_end, const int* __restrict__ pair_chunk,
+    int chunk_base, const __nv_bfloat16* __restrict__ tiles_t,
+    const __nv_bfloat16* __restrict__ slabs, void* __restrict__ out, int b,
+    int C, int R, int k8) {
   constexpr int planes = SPLIT ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   // s_tile[plane][c][r] (stride kTileLd), s_slab[plane][kk][c] (stride
@@ -136,7 +198,6 @@ tmulti_kernel(const int* __restrict__ block_ptr,
   __nv_bfloat16* s_tile = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* s_slab = s_tile + planes * kCB * kTileLd;
 
-  const int b = blockIdx.x;
   const int k_base = blockIdx.y * kKS;
   const int r_base = blockIdx.z * kRS;
   const int ks = min(kKS, k8 - k_base);   // multiple of 8
@@ -163,11 +224,10 @@ tmulti_kernel(const int* __restrict__ block_ptr,
   const size_t tile_elems = static_cast<size_t>(planes) * C * R;
   const size_t slab_elems = static_cast<size_t>(k8) * planes * C;
   const int vec_per_row = rs / 8;
-  const int p_end = block_ptr[b + 1];
-  for (int p = block_ptr[b]; p < p_end; ++p) {
+  for (int p = p_begin; p < p_end; ++p) {
     const __nv_bfloat16* tile = tiles_t + static_cast<size_t>(p) * tile_elems;
     const __nv_bfloat16* slab =
-        slabs + static_cast<size_t>(pair_chunk[p]) * slab_elems;
+        slabs + static_cast<size_t>(chunk_base + pair_chunk[p]) * slab_elems;
     for (int c0 = 0; c0 < C; c0 += kCB) {
       __syncthreads();  // the previous step's reads are done
       // Tile rows [c0, c0 + kCB) of each plane, columns [r_base, +rs).
@@ -254,29 +314,334 @@ tmulti_kernel(const int* __restrict__ block_ptr,
       }
 }
 
+// B1: CTA x owns output block x.
+template <bool SPLIT, bool FUSE>
+__global__ void __launch_bounds__(kThreads, 2)
+tmulti_kernel(const int* __restrict__ block_ptr,
+              const int* __restrict__ pair_chunk,
+              const __nv_bfloat16* __restrict__ tiles_t,
+              const __nv_bfloat16* __restrict__ slabs,
+              void* __restrict__ out, int C, int R, int k8) {
+  const int b = blockIdx.x;
+  tmulti_block<SPLIT, FUSE>(block_ptr[b], block_ptr[b + 1], pair_chunk, 0,
+                            tiles_t, slabs, out, b, C, R, k8);
+}
+
+// B6: CTA x owns the x-th (phase, local block) in phase order. Row i of
+// `phases` is (pair_off, chunk_lo, first partial block, offset of the
+// phase's run bounds in block_ptr_ph); block_ptr_ph holds each phase's
+// nb_ph + 1 run bounds relative to its pair_off.
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 2)
+tmulti_phased_kernel(const int* __restrict__ phases, int n_phases,
+                     const int* __restrict__ block_ptr_ph,
+                     const int* __restrict__ pair_chunk_ph,
+                     const __nv_bfloat16* __restrict__ tiles_t,
+                     const __nv_bfloat16* __restrict__ slabs,
+                     float* __restrict__ partials, int C, int R, int k8) {
+  const int x = blockIdx.x;
+  int ph = 0;
+  while (ph + 1 < n_phases && phases[4 * (ph + 1) + 2] <= x) ++ph;
+  const int pair_off = phases[4 * ph];
+  const int chunk_lo = phases[4 * ph + 1];
+  const int* bp = block_ptr_ph + phases[4 * ph + 3] + (x - phases[4 * ph + 2]);
+  tmulti_block<SPLIT, false>(pair_off + bp[0], pair_off + bp[1],
+                             pair_chunk_ph, chunk_lo, tiles_t, slabs,
+                             partials, x, C, R, k8);
+}
+
+// The dynamic shared-memory limit is a per-device attribute of each
+// kernel: set it at a device's first launch, not at every launch.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, int smem,
+                          std::atomic<uint64_t>& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit == 0 || !(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
 template <bool SPLIT, bool FUSE>
 cudaError_t launch_tmulti(const int* block_ptr, const int* pair_chunk,
                           const __nv_bfloat16* tiles_t,
                           const __nv_bfloat16* slabs, void* out, int nb,
                           int C, int R, int k8, cudaStream_t stream) {
   constexpr int smem = tmulti_smem_bytes<SPLIT>();
-  // The dynamic shared-memory limit is a per-device attribute of each
-  // variant: set it at a device's first launch, not at every launch.
   static std::atomic<uint64_t> configured{0};  // bit d: device d is set
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err =
+      set_smem_once(tmulti_kernel<SPLIT, FUSE>, smem, configured);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (bit == 0 || !(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(tmulti_kernel<SPLIT, FUSE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    configured.fetch_or(bit);
-  }
   const dim3 grid(nb, (k8 + kKS - 1) / kKS, (R + kRS - 1) / kRS);
   tmulti_kernel<SPLIT, FUSE><<<grid, kThreads, smem, stream>>>(
       block_ptr, pair_chunk, tiles_t, slabs, out, C, R, k8);
+  return cudaGetLastError();
+}
+
+template <bool SPLIT>
+cudaError_t launch_tmulti_phased(const int* phases, int n_phases,
+                                 const int* block_ptr_ph,
+                                 const int* pair_chunk_ph,
+                                 const __nv_bfloat16* tiles_t,
+                                 const __nv_bfloat16* slabs, float* partials,
+                                 int n_partials, int C, int R, int k8,
+                                 cudaStream_t stream) {
+  constexpr int smem = tmulti_smem_bytes<SPLIT>();
+  static std::atomic<uint64_t> configured{0};
+  cudaError_t err = set_smem_once(tmulti_phased_kernel<SPLIT>, smem,
+                                  configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_partials, (k8 + kKS - 1) / kKS, (R + kRS - 1) / kRS);
+  tmulti_phased_kernel<SPLIT><<<grid, kThreads, smem, stream>>>(
+      phases, n_phases, block_ptr_ph, pair_chunk_ph, tiles_t, slabs,
+      partials, C, R, k8);
+  return cudaGetLastError();
+}
+
+// ---- B3 / B4: natural-layout contraction ------------------------------
+
+constexpr int kNRS = 128;  // tile rows per CTA (8 warps x one m16 tile)
+constexpr int kNCB = 128;  // contraction columns (of C) staged per step
+constexpr int kNKS = 32;   // k8 columns per CTA (four n8 tiles)
+constexpr int kNLd = kNCB + kPad;  // staged tile / slab row stride (bf16)
+
+template <bool SPLIT>
+constexpr int natural_smem_bytes() {
+  return (SPLIT ? 2 : 1) * (kNRS + kNKS) * kNLd *
+         static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+// The m16 x k16 A fragment at rows m0.., columns k0.. of a row-major
+// [m][k] bf16 tile in shared memory.
+__device__ __forceinline__ void ldmatrix_a(const __nv_bfloat16* tile, int ld,
+                                           int m0, int k0, int lane,
+                                           unsigned (&a)[4]) {
+  const __nv_bfloat16* p = tile + (m0 + (lane & 15)) * ld + k0 +
+                           ((lane >> 4) << 3);
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s));
+}
+
+// The k16 x n8 B fragment (mma's col layout) at columns n0.. of a
+// row-major [n][k] bf16 slab: B[k][n] = slab[n][k], so each register is
+// two neighbouring k of one slab row.
+__device__ __forceinline__ void load_b(const __nv_bfloat16* slab, int ld,
+                                       int n0, int k0, int lane,
+                                       unsigned (&b)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* p = slab + (n0 + g) * ld + k0 + 2 * t;
+  b[0] = *reinterpret_cast<const unsigned*>(p);
+  b[1] = *reinterpret_cast<const unsigned*>(p + 8);
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 2)
+natural_kernel(const int* __restrict__ block_ptr,
+               const int* __restrict__ pair_chunk,
+               const __nv_bfloat16* __restrict__ tiles,
+               const __nv_bfloat16* __restrict__ slabs,
+               float* __restrict__ out, int C, int R, int k8) {
+  constexpr int planes = SPLIT ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // s_tile[plane][r][c], s_slab[plane][kk][c], both bf16, stride kNLd.
+  __nv_bfloat16* s_tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* s_slab = s_tile + planes * kNRS * kNLd;
+
+  const int b = blockIdx.x;
+  const int r_base = blockIdx.y * kNRS;
+  const int k_base = blockIdx.z * kNKS;
+  const int rs = min(kNRS, R - r_base);   // multiple of 8
+  const int ks = min(kNKS, k8 - k_base);  // multiple of 8
+  const int n_tiles = ks / 8;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int m0 = (tid >> 5) * 16;         // this warp's first tile row
+  const bool active = m0 < rs;
+
+  // Everything is zeroed once: tile rows [rs, kNRS) and slab rows [ks,
+  // kNKS) are never loaded, so R = 8 (half an m16 tile) and k8 = 8 need
+  // no other case.
+  for (int i = tid; i < planes * (kNRS + kNKS) * kNLd; i += kThreads) {
+    s_tile[i] = __float2bfloat16_rn(0.f);
+  }
+
+  float acc[4][4];  // [n-tile][fragment]
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+
+  const size_t row_w = static_cast<size_t>(planes) * C;  // tile / slab row
+  const size_t tile_elems = row_w * R;
+  const size_t slab_elems = row_w * k8;
+  constexpr int kVec = kNCB / 8;  // 16-byte vectors per staged row
+  const int p_end = block_ptr[b + 1];
+  for (int p = block_ptr[b]; p < p_end; ++p) {
+    const __nv_bfloat16* tile = tiles + static_cast<size_t>(p) * tile_elems;
+    const __nv_bfloat16* slab =
+        slabs + static_cast<size_t>(pair_chunk[p]) * slab_elems;
+    for (int c0 = 0; c0 < C; c0 += kNCB) {
+      __syncthreads();  // the previous step's reads are done
+      for (int i = tid; i < planes * rs * kVec; i += kThreads) {
+        const int row = i / kVec;  // plane * rs + r
+        const int v = i % kVec;
+        const int plane = row / rs;
+        const int r = row % rs;
+        cp_async16(s_tile + (plane * kNRS + r) * kNLd + v * 8,
+                   tile + (r_base + r) * row_w + plane * C + c0 + v * 8);
+      }
+      for (int i = tid; i < planes * ks * kVec; i += kThreads) {
+        const int row = i / kVec;  // plane * ks + kk
+        const int v = i % kVec;
+        const int plane = row / ks;
+        const int kk = row % ks;
+        cp_async16(s_slab + (plane * kNKS + kk) * kNLd + v * 8,
+                   slab + (k_base + kk) * row_w + plane * C + c0 + v * 8);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (active) {
+#pragma unroll 2
+        for (int k0 = 0; k0 < kNCB; k0 += 16) {
+          unsigned ah[4], bh[4][2];
+          ldmatrix_a(s_tile, kNLd, m0, k0, lane, ah);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nt < n_tiles) {
+              load_b(s_slab, kNLd, nt * 8, k0, lane, bh[nt]);
+              mma(acc[nt], ah, bh[nt]);
+            }
+          }
+          if (SPLIT) {
+            unsigned al[4];
+            ldmatrix_a(s_tile + kNRS * kNLd, kNLd, m0, k0, lane, al);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              if (nt < n_tiles) {
+                unsigned bl[2];
+                load_b(s_slab + kNKS * kNLd, kNLd, nt * 8, k0, lane, bl);
+                mma(acc[nt], al, bh[nt]);  // tl . sh
+                mma(acc[nt], ah, bl);      // th . sl
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;
+  // Fragment (nt, j): tile row m0 + g + 8*(j/2), k column nt*8 + 2t + j%2.
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      const int kk = nt * 8 + 2 * t;
+      if (r >= rs || kk >= ks) continue;
+      float* o = out + (static_cast<size_t>(b) * R + r_base + r) * k8 +
+                 k_base + kk;
+      *reinterpret_cast<float2*>(o) =
+          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+}
+
+constexpr int kFRS = 128;  // B4 f32: tile rows per CTA
+constexpr int kFCB = 32;   // contraction columns staged per step
+constexpr int kFKS = 32;   // k8 columns per CTA
+
+__global__ void __launch_bounds__(kThreads)
+natural_f32_kernel(const int* __restrict__ block_ptr,
+                   const int* __restrict__ pair_chunk,
+                   const float* __restrict__ tiles,
+                   const float* __restrict__ slabs, float* __restrict__ out,
+                   int C, int R, int k8) {
+  // Transposed K-slices: s_tile[c][r], s_slab[c][kk]; rows padded by 16
+  // bytes so every float4 stays aligned.
+  __shared__ __align__(16) float s_tile[kFCB][kFRS + 4];
+  __shared__ __align__(16) float s_slab[kFCB][kFKS + 4];
+  const int b = blockIdx.x;
+  const int r_base = blockIdx.y * kFRS;
+  const int k_base = blockIdx.z * kFKS;
+  const int rs = min(kFRS, R - r_base);
+  const int ks = min(kFKS, k8 - k_base);
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 3) * 4;  // this thread's 4 tile rows
+  const int q0 = (tid & 7) * 4;   // and 4 k columns
+
+  // Columns past rs / ks are never loaded and stay zero.
+  for (int i = tid; i < kFCB * (kFRS + 4); i += kThreads) {
+    (&s_tile[0][0])[i] = 0.f;
+  }
+  for (int i = tid; i < kFCB * (kFKS + 4); i += kThreads) {
+    (&s_slab[0][0])[i] = 0.f;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const int p_end = block_ptr[b + 1];
+  for (int p = block_ptr[b]; p < p_end; ++p) {
+    const float* tile = tiles + static_cast<size_t>(p) * R * C;
+    const float* slab = slabs + static_cast<size_t>(pair_chunk[p]) * k8 * C;
+    for (int c0 = 0; c0 < C; c0 += kFCB) {
+      __syncthreads();
+      for (int i = tid; i < rs * kFCB; i += kThreads) {
+        const int r = i / kFCB, c = i % kFCB;
+        s_tile[c][r] = tile[static_cast<size_t>(r_base + r) * C + c0 + c];
+      }
+      for (int i = tid; i < ks * kFCB; i += kThreads) {
+        const int kk = i / kFCB, c = i % kFCB;
+        s_slab[c][kk] = slab[static_cast<size_t>(k_base + kk) * C + c0 + c];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < kFCB; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(&s_tile[c][r0]);
+        const float4 s = *reinterpret_cast<const float4*>(&s_slab[c][q0]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], sv[j], acc[i][j]);
+      }
+    }
+  }
+  if (q0 >= ks) return;  // ks is a multiple of 8: q0 < ks covers q0 + 3
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (r0 + i >= rs) continue;
+    float* o = out + (static_cast<size_t>(b) * R + r_base + r0 + i) * k8 +
+               k_base + q0;
+    *reinterpret_cast<float4*>(o) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_natural(const int* block_ptr, const int* pair_chunk,
+                           const void* tiles, const void* slabs, float* out,
+                           int nb, int C, int R, int k8, cudaStream_t stream) {
+  constexpr int smem = natural_smem_bytes<SPLIT>();
+  static std::atomic<uint64_t> configured{0};
+  cudaError_t err = set_smem_once(natural_kernel<SPLIT>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nb, (R + kNRS - 1) / kNRS, (k8 + kNKS - 1) / kNKS);
+  natural_kernel<SPLIT><<<grid, kThreads, smem, stream>>>(
+      block_ptr, pair_chunk, static_cast<const __nv_bfloat16*>(tiles),
+      static_cast<const __nv_bfloat16*>(slabs), out, C, R, k8);
   return cudaGetLastError();
 }
 
@@ -369,6 +734,61 @@ int tmulti_launch(const void* block_ptr, const void* pair_chunk,
     err = launch_tmulti<false, false>(bp, pc, t, s, out, nb, C, R, k8, st);
   } else {
     err = cudaErrorInvalidValue;  // the one-plane state is a plain cast
+  }
+  return static_cast<int>(err);
+}
+
+// B6. phases (n_phases, 4) int32 rows (pair_off, chunk_lo, first
+// partial, offset into block_ptr_ph); block_ptr_ph int32 run bounds
+// relative to each phase's pair_off; pair_chunk_ph (P) int32 phase-local;
+// tiles_t (P, planes*C, R) bf16 phase-major; slabs (n_chunks, k8,
+// planes*C) bf16; partials (n_partials, k8, R) f32. Same requirements as
+// B1.
+int tmulti_phased_launch(const void* phases, int n_phases,
+                         const void* block_ptr_ph, const void* pair_chunk_ph,
+                         const void* tiles_t, const void* slabs,
+                         void* partials, int n_partials, int C, int R, int k8,
+                         int split, void* stream) {
+  const int* ph = static_cast<const int*>(phases);
+  const int* bp = static_cast<const int*>(block_ptr_ph);
+  const int* pc = static_cast<const int*>(pair_chunk_ph);
+  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(tiles_t);
+  const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(slabs);
+  float* o = static_cast<float*>(partials);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      split ? launch_tmulti_phased<true>(ph, n_phases, bp, pc, t, s, o,
+                                         n_partials, C, R, k8, st)
+            : launch_tmulti_phased<false>(ph, n_phases, bp, pc, t, s, o,
+                                          n_partials, C, R, k8, st);
+  return static_cast<int>(err);
+}
+
+// B3 / B4. block_ptr (nb + 1) and pair_chunk (P) int32; tiles (P, R,
+// planes*C) and slabs (n_chunks, k8, planes*C): mode 0 bf16 [hi | lo]
+// (B3), mode 1 bf16 (B4), mode 2 f32 (B4); out (nb, R, k8) f32. Requires
+// C % 128 == 0, R % 8 == 0, k8 % 8 == 0 and 16-byte aligned tiles and
+// slabs (checked by the wrapper).
+int natural_launch(const void* block_ptr, const void* pair_chunk,
+                   const void* tiles, const void* slabs, void* out, int nb,
+                   int C, int R, int k8, int mode, void* stream) {
+  const int* bp = static_cast<const int*>(block_ptr);
+  const int* pc = static_cast<const int*>(pair_chunk);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (mode == 0) {
+    err = launch_natural<true>(bp, pc, tiles, slabs, o, nb, C, R, k8, st);
+  } else if (mode == 1) {
+    err = launch_natural<false>(bp, pc, tiles, slabs, o, nb, C, R, k8, st);
+  } else if (mode == 2) {
+    const dim3 grid(nb, (R + kFRS - 1) / kFRS, (k8 + kFKS - 1) / kFKS);
+    natural_f32_kernel<<<grid, kThreads, 0, st>>>(
+        bp, pc, static_cast<const float*>(tiles),
+        static_cast<const float*>(slabs), o, C, R, k8);
+    err = cudaGetLastError();
+  } else {
+    err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["CSR", "COO", "ELL", "BucketedELL", "coalesce_coo",
-           "split_csr_by_width", "to_tensor", "array_dtype", "cast"]
+           "split_csr_by_width", "to_tensor", "array_dtype", "cast",
+           "as_float64"]
 
 
 def to_tensor(x, device):
@@ -69,6 +70,16 @@ def cast(x, dtype):
     return t.numpy()
 
 
+def as_float64(x) -> np.ndarray:
+    """The values of a host array as float64 numpy, decoding ``uint16``
+    bfloat16 bit patterns (a plain ``astype`` would read the bits as
+    integers)."""
+    x = np.asarray(x)
+    if x.dtype == np.uint16:
+        return to_tensor(x, "cpu").to(torch.float64).numpy()
+    return x.astype(np.float64)
+
+
 def coalesce_coo(i, j, vals, n: int):
     """Sum duplicate (row, col) coordinates — required before any
     densifying build (windowed tiles, banded blocks), whose scatter is an
@@ -102,7 +113,9 @@ class CSR:
         return int(self.values.shape[0])
 
     def astype(self, dtype) -> "CSR":
-        return dataclasses.replace(self, values=self.values.astype(dtype))
+        """Values cast to ``dtype`` (torch or numpy) through ``cast``:
+        bfloat16 becomes ``uint16`` bits, rounded to nearest even."""
+        return dataclasses.replace(self, values=cast(self.values, dtype))
 
     def to(self, device) -> "CSR":
         return _move(self, device, ("values", "col_indices", "row_ptr"))
@@ -143,6 +156,9 @@ class COO:
     @property
     def nnz(self) -> int:
         return int(self.values.shape[0])
+
+    def astype(self, dtype) -> "COO":
+        return dataclasses.replace(self, values=cast(self.values, dtype))
 
     def to(self, device) -> "COO":
         return _move(self, device, ("values", "row_indices", "col_indices"))

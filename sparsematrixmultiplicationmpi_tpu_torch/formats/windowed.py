@@ -11,14 +11,12 @@ Everything here is host-side numpy and bit-identical to the JAX package
 on the same input: the cost-model tile search, the RCM ordering choice,
 the padded pair layout, the bf16 ``hi|lo`` split planes and the
 transposed planes ``tiles_t`` that the Hopper kernel B1
-(``ops/cuda_windowed.py::windowed_matmul_tmulti``) streams. The cost
-constants below are the JAX package's TPU v5e measurements, carried
-verbatim so the port routes exactly as the reference does; an H100 cost
-table is later work. bf16 host arrays are ``uint16`` bit patterns
-(``formats/matrix.py::to_tensor``).
-
-The phase-major resident layout (``phase_layout=True``, kernel B6) is not
-ported yet and raises.
+(``ops/cuda_windowed.py::windowed_matmul_tmulti``) streams, and the
+phase-major layout (``phase_layout=True``, ``build_phase_layout``) of the
+phased kernel B6. The cost constants below are the JAX package's TPU v5e
+measurements, carried verbatim so the port routes exactly as the
+reference does; an H100 cost table is later work. bf16 host arrays are
+``uint16`` bit patterns (``formats/matrix.py::to_tensor``).
 """
 
 from __future__ import annotations
@@ -29,10 +27,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .matrix import BucketedELL, CSR, ELL, to_tensor
+from .matrix import BucketedELL, CSR, ELL, array_dtype, cast, to_tensor
 
 __all__ = ["WindowedPairs", "windowed_cost_estimate", "windowed_wins",
-           "build_dense_pairs", "DEFAULT_CANDIDATES"]
+           "build_dense_pairs", "build_phase_layout", "DEFAULT_CANDIDATES"]
 
 #: Default (R, C) tile-shape candidates for the build-time cost search.
 DEFAULT_CANDIDATES = ((64, 256), (128, 256), (256, 256),
@@ -125,7 +123,9 @@ DENSE_BYTES_HARD_CAP = 6_000_000_000
 #: (``ops/pallas_windowed.py::_kernel_tmulti_resident``). probe18's
 #: envelope: a 7 MB window + the double-buffered U=16 tile stream
 #: compiled and ran under a 14 MB limit on v5e — the constant-index
-#: window block is single-buffered.
+#: window block is single-buffered. A v5e budget, kept verbatim so the
+#: phase layout and the phased kernel's resident/streamed gate match the
+#: reference; on the H100 a window this size stays in the 50 MB L2.
 RESIDENT_SLAB_VMEM_BYTES = 7 * 1024 * 1024
 
 
@@ -152,6 +152,107 @@ def _tiles_t(tiles: np.ndarray, tiles_split: Optional[np.ndarray]):
     return np.ascontiguousarray(src.swapaxes(1, 2))
 
 
+def build_phase_layout(pb, pc, nb: int, n_chunks: int, cpp: int, U: int):
+    """Phase-major reordering of a (padded, block-major) pair list for
+    the phased kernel B6 (``ops/cuda_windowed.py::
+    windowed_matmul_tmulti_phased``).
+
+    Pairs are grouped by fat-vector chunk window ("phase" ``pc // cpp``
+    — ``cpp`` chunks per phase sized so one phase's slabs fit the VMEM
+    budget), block-ascending within each phase. Per phase, row blocks
+    inside its touched block range with no pair get a dummy zero pair
+    (the kernel only flushes blocks it visits, and the phase's partial
+    output buffer covers the whole range), and the phase's pair count
+    is padded to a ``U`` multiple. Deterministic pure function of
+    ``(pb, pc)`` — ``astype`` re-derives the same layout to re-gather
+    the transposed planes.
+
+    Returns ``(pb_ph, pc_ph, src, phases)``: phase-LOCAL block and
+    chunk ids (int32), ``src`` mapping each phase-major slot to its
+    input pair index (-1 for dummies, int64), and a static tuple of
+    per-phase ``(pair_offset, n_pairs, chunk_lo, block_lo, nb_ph)``
+    records. Empty phases (chunk windows no pair touches) are skipped —
+    the combine leaves their blocks' contribution zero.
+    """
+    pb = np.asarray(pb, dtype=np.int64)
+    pc = np.asarray(pc, dtype=np.int64)
+    ph = pc // cpp
+    order = np.lexsort((pc, pb, ph))
+    ph_sorted = ph[order]
+    nph_max = int(ph_sorted[-1]) + 1
+    bounds = np.searchsorted(ph_sorted, np.arange(nph_max + 1))
+    pb_out, pc_out, src_out, phases = [], [], [], []
+    offset = 0
+    for p in range(nph_max):
+        s, e = bounds[p], bounds[p + 1]
+        if s == e:
+            continue
+        sel = order[s:e]
+        lpb = pb[sel]
+        lpc = pc[sel] - p * cpp
+        blo, bhi = int(lpb.min()), int(lpb.max())
+        present = np.zeros(bhi - blo + 1, dtype=bool)
+        present[lpb - blo] = True
+        holes = np.nonzero(~present)[0] + blo
+        gb = np.concatenate([lpb, holes])
+        gc = np.concatenate([lpc, np.zeros(len(holes), np.int64)])
+        gs = np.concatenate([sel, np.full(len(holes), -1, np.int64)])
+        o2 = np.argsort(gb, kind="stable")
+        gb, gc, gs = gb[o2], gc[o2], gs[o2]
+        pad = (-len(gb)) % U
+        if pad:
+            gb = np.concatenate([gb, np.full(pad, bhi, np.int64)])
+            gc = np.concatenate([gc, np.zeros(pad, np.int64)])
+            gs = np.concatenate([gs, np.full(pad, -1, np.int64)])
+        phases.append((offset, len(gb), p * cpp, blo, bhi - blo + 1))
+        offset += len(gb)
+        pb_out.append(gb - blo)
+        pc_out.append(gc)
+        src_out.append(gs)
+    return (np.concatenate(pb_out).astype(np.int32),
+            np.concatenate(pc_out).astype(np.int32),
+            np.concatenate(src_out),
+            tuple(phases))
+
+
+def _chunks_per_phase(C: int, itemsize: int, k_nominal: int) -> int:
+    """Chunks per resident phase for the VMEM budget: one chunk's slab
+    is ``k8 x slab_w`` bf16 (lane-packed hi|lo for f32 data, single
+    plane for bf16)."""
+    k8 = -(-max(k_nominal, 8) // 8) * 8
+    slab_w = 2 * C if itemsize == 4 else C
+    return max(int(RESIDENT_SLAB_VMEM_BYTES // (k8 * slab_w * 2)), 1)
+
+
+def _phase_fields(tiles, tiles_split, pair_block, pair_chunk, nb: int,
+                  n_chunks: int, cpp: int, U: int):
+    """(tiles_t phase-major, pb_ph, pc_ph, phases) for a U>2 format:
+    the transposed bf16 planes gathered into the phase-major order
+    (dummies zero). Host-side numpy."""
+    pb_ph, pc_ph, src, phases = build_phase_layout(
+        np.asarray(pair_block), np.asarray(pair_chunk), nb, n_chunks,
+        cpp, U)
+    base = tiles_split if tiles_split is not None else tiles
+    base = np.asarray(base)
+    g = base[np.where(src >= 0, src, 0)]
+    g[src < 0] = 0
+    tiles_t = np.ascontiguousarray(g.swapaxes(1, 2))
+    return tiles_t, pb_ph, pc_ph, phases
+
+
+def _phase_block_ptr(pb_ph, phases) -> Optional[np.ndarray]:
+    """The phased kernels' work list: for each phase, the bounds of its
+    ``nb_ph`` local block runs as pair indices relative to the phase's
+    first pair (``nb_ph + 1`` entries), concatenated in phase order.
+    None without a phase layout."""
+    if phases is None:
+        return None
+    pb_ph = np.asarray(pb_ph)
+    return np.concatenate([
+        np.searchsorted(pb_ph[off:off + n], np.arange(nb_ph + 1))
+        for off, n, _, _, nb_ph in phases]).astype(np.int32)
+
+
 def _bf16_bits(x):
     """A numpy array from the JAX package's bf16 planes (ml_dtypes
     ``bfloat16``) as ``uint16`` bits; other arrays pass through."""
@@ -169,7 +270,7 @@ def _host_bucketed(spill) -> Optional[BucketedELL]:
     if spill is None or isinstance(spill, BucketedELL):
         return spill
     return BucketedELL(
-        buckets=tuple(ELL(cols=np.asarray(b.cols), vals=np.asarray(b.vals),
+        buckets=tuple(ELL(cols=np.asarray(b.cols), vals=_bf16_bits(b.vals),
                           shape=tuple(b.shape)) for b in spill.buckets),
         row_perm=np.asarray(spill.row_perm),
         inv_row_perm=np.asarray(spill.inv_row_perm),
@@ -441,7 +542,7 @@ class WindowedPairs:
     undoes the permutation.
     """
 
-    tiles: Optional[np.ndarray]     # (P, R, C); None in a card copy (to)
+    tiles: Optional[np.ndarray]     # (P, R, C); None in some card copies
     pair_chunk: np.ndarray          # (P,) int32
     pair_block: np.ndarray          # (P,) int32, ascending
     block_ptr: np.ndarray           # (nb + 1,) int32 pair run bounds
@@ -460,10 +561,36 @@ class WindowedPairs:
     pairs_per_step: int = 2
     #: Transposed planes for B1, built for ``pairs_per_step > 2``:
     #: (P, 2C, R) bf16 hi/lo for f32 data, (P, C, R) otherwise.
+    #: PHASE-major order when ``phases`` is set (``build_phase_layout``):
+    #: consumed by B6 with the ``_ph`` id arrays, never with
+    #: ``pair_block``/``pair_chunk``.
     tiles_t: Optional[np.ndarray] = None
+    #: Phase-major layout (``phase_layout=True``, R % 128 == 0 U>2
+    #: builds): phase-LOCAL block and chunk ids in ``tiles_t``'s order,
+    #: the static per-phase ``(pair_offset, n_pairs, chunk_lo, block_lo,
+    #: nb_ph)`` records and the chunk window one phase covers (sized for
+    #: ``k_nominal``; a wider runtime k takes the streamed route).
+    pair_block_ph: Optional[np.ndarray] = None
+    pair_chunk_ph: Optional[np.ndarray] = None
+    phases: Optional[tuple] = None
+    chunks_per_phase: int = 0
+    #: The phased kernels' work list, derived on the host from
+    #: ``pair_block_ph`` (``_phase_block_ptr``).
+    block_ptr_ph: Optional[np.ndarray] = None
 
     _ARRAYS = ("tiles", "pair_chunk", "pair_block", "block_ptr",
-               "tiles_split", "perm", "inv_perm", "tiles_t")
+               "tiles_split", "perm", "inv_perm", "tiles_t",
+               "pair_block_ph", "pair_chunk_ph", "block_ptr_ph")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The tiles' dtype (f32 for split planes), from whichever plane
+        the copy holds."""
+        if self.tiles is not None:
+            return array_dtype(self.tiles)
+        if self.split:
+            return torch.float32
+        return array_dtype(self.tiles_t)
 
     @property
     def n_pairs(self) -> int:
@@ -502,17 +629,61 @@ class WindowedPairs:
             return self.pair_block.device
         return torch.device("cpu")
 
+    def astype(self, dtype) -> "WindowedPairs":
+        """The tiles cast to ``dtype`` (torch or numpy) on the host, with
+        the planes the kernels read re-derived from them: the bf16 split,
+        ``tiles_t``, and the phase layout (a pure function of the
+        block-major ids; ``chunks_per_phase`` is kept from the build, and
+        a window the new width overflows takes the streamed route)."""
+        tiles = cast(self.tiles, dtype)
+        split = _split_planes(tiles)
+        tiles_t = pb_ph = pc_ph = phases = None
+        if self.pairs_per_step > 2:
+            if self.phases is not None:
+                tiles_t, pb_ph, pc_ph, phases = _phase_fields(
+                    tiles, split, self.pair_block, self.pair_chunk,
+                    self.n_blocks, self.n_chunks, self.chunks_per_phase,
+                    self.pairs_per_step)
+            else:
+                tiles_t = _tiles_t(tiles, split)
+        return dataclasses.replace(
+            self, tiles=tiles, tiles_split=split, tiles_t=tiles_t,
+            pair_block_ph=pb_ph, pair_chunk_ph=pc_ph, phases=phases,
+            block_ptr_ph=_phase_block_ptr(pb_ph, phases),
+            spill=None if self.spill is None else self.spill.astype(dtype))
+
     def to(self, device) -> "WindowedPairs":
         """A copy whose arrays are torch tensors on ``device`` (bf16
-        planes as ``torch.bfloat16``). On a CUDA device, where the kernels
-        read only ``tiles_t`` (U>2, ``R % 128 == 0``), the natural planes
-        ``tiles``/``tiles_split`` stay behind as ``None``: the plain path
-        rebuilds its tiles from ``tiles_t`` when a route needs them."""
+        planes as ``torch.bfloat16``). A CUDA copy leaves behind, as
+        ``None``, the natural planes no kernel of its route reads:
+        ``tiles``/``tiles_split`` where the kernels read only ``tiles_t``
+        (U>2, ``R % 128 == 0``), ``tiles`` of an f32 U=2 operand (its
+        kernel B3 reads ``tiles_split``). The plain path rebuilds its
+        tiles from the planes kept when a route needs them.
+
+        Moving a U=2 operand to a CUDA device audits, on the host arrays,
+        the two-pair kernels' contract (pairs ``2s`` and ``2s+1`` share a
+        row block), as the reference's dispatch does, and raises when it
+        is violated."""
         device = torch.device(device)
+        if device.type == "cuda" and self.pairs_per_step <= 2:
+            pb = self.pair_block
+            if isinstance(pb, np.ndarray) and (
+                    len(pb) % 2 or np.any(pb[0::2] != pb[1::2])):
+                raise ValueError(
+                    "two-pair kernel contract violated: per-block pair "
+                    "runs must be padded to even length "
+                    "(WindowedPairs.from_csr pairs_per_step=2 branch)")
         kernel_only = (device.type == "cuda" and self.pairs_per_step > 2
                        and self.tiles_t is not None
                        and self.block_rows % 128 == 0)
-        dropped = ("tiles", "tiles_split") if kernel_only else ()
+        if kernel_only:
+            dropped = ("tiles", "tiles_split")
+        elif (device.type == "cuda" and self.pairs_per_step <= 2
+              and self.tiles_split is not None):
+            dropped = ("tiles",)
+        else:
+            dropped = ()
         return dataclasses.replace(
             self,
             spill=None if self.spill is None else self.spill.to(device),
@@ -564,17 +735,15 @@ class WindowedPairs:
         """An operand from its fields as numpy arrays — e.g. the fields
         of an operand the JAX package built, so both packages run the
         identical operand. bf16 planes may arrive as ml_dtypes
-        ``bfloat16`` or as ``uint16`` bits. The phase-major layout
-        (``phases``) needs kernel B6, which is not ported."""
-        if phases is not None:
-            raise NotImplementedError(
-                "phase-major windowed layout needs kernel B6 "
-                "(_kernel_tmulti_resident), not ported yet")
-        def opt(x):
-            return None if x is None else np.asarray(x)
+        ``bfloat16`` or as ``uint16`` bits."""
+        def opt(x, dtype=None):
+            return None if x is None else np.asarray(x, dtype=dtype)
 
+        pb_ph = opt(pair_block_ph, np.int32)
+        phases = None if phases is None else tuple(
+            tuple(int(x) for x in ph) for ph in phases)
         return cls(
-            tiles=np.asarray(tiles),
+            tiles=_bf16_bits(tiles),
             pair_chunk=np.asarray(pair_chunk, dtype=np.int32),
             pair_block=np.asarray(pair_block, dtype=np.int32),
             block_ptr=np.asarray(block_ptr, dtype=np.int32),
@@ -586,6 +755,10 @@ class WindowedPairs:
             est_seconds=float(est_seconds),
             pairs_per_step=int(pairs_per_step),
             tiles_t=_bf16_bits(tiles_t),
+            pair_block_ph=pb_ph,
+            pair_chunk_ph=opt(pair_chunk_ph, np.int32),
+            phases=phases, chunks_per_phase=int(chunks_per_phase),
+            block_ptr_ph=_phase_block_ptr(pb_ph, phases),
         )
 
     @classmethod
@@ -603,12 +776,11 @@ class WindowedPairs:
                  ) -> Optional["WindowedPairs"]:
         """Build windowed storage (the JAX package's builder, same
         arguments, same arrays); returns ``None`` when no tiling beats the
-        gather path by ``beat_gather_margin``. ``phase_layout=True``
-        raises: its kernel (B6) is not ported."""
-        if phase_layout:
-            raise NotImplementedError(
-                "phase_layout=True needs kernel B6 "
-                "(_kernel_tmulti_resident), not ported yet")
+        gather path by ``beat_gather_margin``. ``phase_layout=True`` opts
+        a kernel-eligible U>2 build (``R % 128 == 0``) into the
+        phase-major layout of kernel B6; off by default, as in the
+        reference (measured slower than the block-major kernel on the
+        v5e)."""
         if pairs_per_step is None:
             pairs_per_step = PRODUCTION_PAIRS_PER_STEP
         if not isinstance(pairs_per_step, int) or pairs_per_step < 2:
@@ -621,6 +793,7 @@ class WindowedPairs:
         m, n = csr.shape
         if m == 0 or csr.nnz == 0:
             return None
+        itemsize = np.asarray(csr.values).dtype.itemsize
 
         coo = csr.to_coo()
         i0 = np.asarray(coo.row_indices).astype(np.int64)
@@ -719,10 +892,22 @@ class WindowedPairs:
             inv_perm[perm] = np.arange(m, dtype=np.int32)
             perm = perm.astype(np.int32)
         split = _split_planes(tiles)
-        tiles_t = _tiles_t(tiles, split) if pairs_per_step > 2 else None
+        tiles_t = pb_ph = pc_ph = phases = None
+        cpp = 0
+        if pairs_per_step > 2:
+            if phase_layout and R % 128 == 0:
+                cpp = _chunks_per_phase(C, itemsize, k_nominal)
+                tiles_t, pb_ph, pc_ph, phases = _phase_fields(
+                    tiles, split, pair_block, pair_chunk, nb, n_chunks,
+                    cpp, pairs_per_step)
+            else:
+                tiles_t = _tiles_t(tiles, split)
         return cls(
             tiles=tiles, pair_chunk=pair_chunk, pair_block=pair_block,
             block_ptr=block_ptr, tiles_split=split, tiles_t=tiles_t,
+            pair_block_ph=pb_ph, pair_chunk_ph=pc_ph, phases=phases,
+            chunks_per_phase=cpp,
+            block_ptr_ph=_phase_block_ptr(pb_ph, phases),
             spill=spill, perm=perm, inv_perm=inv_perm,
             shape=(m, n), block_rows=R, chunk_cols=C,
             est_seconds=float(est), pairs_per_step=pairs_per_step,

@@ -128,6 +128,16 @@ def load_library() -> ctypes.CDLL:
         lib.band_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                     i32, ptr]
         lib.band_launch.restype = i32
+        lib.tmulti_phased_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr,
+                                             ptr, i32, i32, i32, i32, i32,
+                                             ptr]
+        lib.tmulti_phased_launch.restype = i32
+        lib.natural_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                       i32, i32, i32, ptr]
+        lib.natural_launch.restype = i32
+        lib.ell_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          ptr]
+        lib.ell_gather_launch.restype = i32
         lib.error_string.argtypes = [i32]
         lib.error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -141,8 +141,10 @@ def _auto_with_est(csr: CSR, reorder, format_kwargs, allow_hub: bool):
 def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
     """SpMM on the operand's format; the operand must be on ``v``'s
     device (``operand.to(v.device)``). CPU tensors take the plain paths,
-    CUDA tensors the kernels where the reference ran one: B1/B2 for
-    windowed tiles, B5 for bands of ``block_rows <= 128``."""
+    CUDA tensors the kernels where the reference ran one: for windowed
+    tiles B2 then B1 (U>2), B6 (a phase layout) or B3/B4 (U=2), with the
+    spill through B7 under ``ops/ell.py::SPILL_DMA_GATHER``; B5 for bands
+    of ``block_rows <= 128``."""
     if isinstance(operand, WindowedPairs):
         from .windowed import spmm_windowed
 

@@ -1,7 +1,7 @@
 """Hopper kernels of the windowed SpMM and their plain PyTorch versions
 (counterpart of ``sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py``).
 
-Two kernels from ``csrc/windowed_kernels.cu`` carry the main path:
+Five kernels from ``csrc/windowed_kernels.cu``:
 
 * **B1** ``windowed_matmul_tmulti`` — the transposed-state U-pair
   contraction (``_kernel_tmulti`` on the TPU): slabs in, ``(nb, k8, R)``
@@ -10,23 +10,39 @@ Two kernels from ``csrc/windowed_kernels.cu`` carry the main path:
 * **B2** ``chunk_slabs`` — the per-iterate relayout ``(pad_rows, k) ->
   (n_chunks, k, C)``, with ``split`` the bf16 ``[hi | lo]`` planes
   ``(n_chunks, k, 2C)``.
+* **B3** ``windowed_matmul_split3`` — the natural-layout split3
+  contraction of U=2 f32 formats (``_kernel_split3``): ``(nb, R, k8)``.
+* **B4** ``windowed_matmul_single`` — the same contraction on one plane,
+  bf16 or f32 at full precision (``_kernel_plain``, wrapper
+  ``windowed_matmul_pallas``).
+* **B6** ``windowed_matmul_tmulti_phased`` — B1's contraction over a
+  phase-major pair list (``_kernel_tmulti_resident``), per-phase partials
+  added in phase order; B1 on each phase's slices when the window
+  overflows the reference's budget (the streamed route).
 
 Each wrapper takes its plain version (``*_plain``, same module) for a
 tensor on the CPU and launches its kernel for a CUDA tensor — there is no
 fallback from one to the other — and counts its kernel launches in
-``<wrapper>.launches``. ``spmm_windowed_cuda`` is the U>2 branch of the
-JAX package's ``spmm_windowed_pallas``: one-shot SpMM through B2 then B1.
+``<wrapper>.launches``. ``spmm_windowed_cuda`` is the JAX package's
+``spmm_windowed_pallas``: one-shot SpMM through B2 then B1, B6, B3 or B4.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
 
-from ..formats.windowed import WindowedPairs
+from ..formats.windowed import RESIDENT_SLAB_VMEM_BYTES, WindowedPairs
 from ._kernel_lib import check_launch, load_library
 
 __all__ = ["chunk_slabs", "chunk_slabs_plain", "windowed_matmul_tmulti",
            "windowed_matmul_tmulti_plain", "resplit_slabs",
+           "windowed_matmul_split3", "windowed_matmul_split3_plain",
+           "windowed_matmul_single", "windowed_matmul_single_plain",
+           "windowed_matmul_tmulti_phased",
+           "windowed_matmul_tmulti_phased_plain",
            "spmm_windowed_cuda", "launch_counts", "reset_launch_counts"]
 
 
@@ -215,36 +231,297 @@ def windowed_matmul_tmulti(pair_block, pair_chunk, block_ptr, tiles_t,
 windowed_matmul_tmulti.launches = 0
 
 
+# ---- B6: windowed_matmul_tmulti_phased ----------------------------------
+
+def _combine_phases(parts, phases, nb: int) -> torch.Tensor:
+    """``(nb, k8, R)``: each phase's ``(nb_ph, k8, R)`` partial added at
+    its ``block_lo``, in phase order (the reference's pad-and-add, same
+    order); blocks no phase touches stay zero."""
+    out = parts[0].new_zeros((nb,) + tuple(parts[0].shape[1:]))
+    for part, (_, _, _, block_lo, nb_ph) in zip(parts, phases):
+        out[block_lo:block_lo + nb_ph] += part
+    return out
+
+
+def windowed_matmul_tmulti_phased_plain(pair_block_ph, pair_chunk_ph,
+                                        tiles_t, slabs, *, nb: int,
+                                        phases, split: bool = True):
+    """Plain version of B6 on any device: B1's plain version on each
+    phase's slices (its pairs, its chunk window of ``slabs``), the
+    partials added in phase order."""
+    parts = []
+    for off, n, chunk_lo, _, nb_ph in phases:
+        parts.append(windowed_matmul_tmulti_plain(
+            pair_block_ph[off:off + n], pair_chunk_ph[off:off + n],
+            tiles_t[off:off + n], slabs[chunk_lo:], nb=nb_ph, split=split))
+    return _combine_phases(parts, phases, nb)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_table(phases: tuple, device: torch.device) -> torch.Tensor:
+    """B6's per-phase rows ``(pair_off, chunk_lo, first partial, offset
+    of the run bounds in block_ptr_ph)``, int32 on ``device``; built once
+    per layout and device."""
+    rows, first, bp_off = [], 0, 0
+    for off, _, chunk_lo, _, nb_ph in phases:
+        rows.append((off, chunk_lo, first, bp_off))
+        first += nb_ph
+        bp_off += nb_ph + 1
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
+                                  tiles_t, slabs, *, nb: int, phases,
+                                  chunks_per_phase: int,
+                                  pairs_per_step: int = 16,
+                                  split: bool = True,
+                                  force_streamed: bool = False):
+    """Phased transposed contraction: slabs in, ``(nb, k8, R)`` f32 out.
+
+    The pair list is phase-major (``formats/windowed.py::
+    build_phase_layout``): per phase ``(pair_off, n_pairs, chunk_lo,
+    block_lo, nb_ph)``, phase-local block and chunk ids
+    (``pair_block_ph``, ``pair_chunk_ph``), run bounds ``block_ptr_ph``
+    (``nb_ph + 1`` per phase, relative to ``pair_off``). Resident route:
+    one B6 launch writes every phase's block-range partial, in phase
+    order; streamed route (``force_streamed``, or a chunk window past the
+    reference's ``RESIDENT_SLAB_VMEM_BYTES`` at this ``k8``, the gate the
+    reference computes): one B1 launch per phase on its slices. The
+    partials are added in phase order either way."""
+    _, C2, R = tiles_t.shape
+    C = C2 // 2 if split else C2
+    k8 = slabs.shape[1]
+    _require(k8 % 8 == 0, f"slab row dim {k8} must be a sublane multiple")
+    _require(split or tiles_t.dtype != torch.float32,
+             "phased tmulti split=False requires bf16 operands")
+    slab_w = 2 * C if split else C
+    _require(slabs.shape[2] == slab_w,
+             f"slab width {slabs.shape[2]} != expected {slab_w} "
+             f"(split={split})")
+    if not _on_kernel_device(slabs):
+        return windowed_matmul_tmulti_phased_plain(
+            pair_block_ph, pair_chunk_ph, tiles_t, slabs, nb=nb,
+            phases=phases, split=split)
+    window_bytes = (min(chunks_per_phase, slabs.shape[0]) * k8 * slab_w
+                    * slabs.element_size())
+    if force_streamed or window_bytes > RESIDENT_SLAB_VMEM_BYTES:
+        parts, bp_off = [], 0
+        for off, n, chunk_lo, _, nb_ph in phases:
+            parts.append(windowed_matmul_tmulti(
+                pair_block_ph[off:off + n], pair_chunk_ph[off:off + n],
+                block_ptr_ph[bp_off:bp_off + nb_ph + 1],
+                tiles_t[off:off + n], slabs[chunk_lo:], nb=nb_ph,
+                pairs_per_step=pairs_per_step, split=split))
+            bp_off += nb_ph + 1
+        return _combine_phases(parts, phases, nb)
+    dev = slabs.device
+    for name, x, dt in (("tiles_t", tiles_t, torch.bfloat16),
+                        ("slabs", slabs, torch.bfloat16),
+                        ("pair_chunk_ph", pair_chunk_ph, torch.int32),
+                        ("block_ptr_ph", block_ptr_ph, torch.int32)):
+        _require(x.device == dev and x.dtype == dt and x.is_contiguous(),
+                 f"windowed_matmul_tmulti_phased kernel: {name} must be a "
+                 f"contiguous {dt} tensor on {dev}, got {x.dtype} on "
+                 f"{x.device}")
+    _require(C % 128 == 0 and R % 8 == 0,
+             f"windowed_matmul_tmulti_phased kernel needs C % 128 == 0 and "
+             f"R % 8 == 0, got C={C}, R={R}")
+    _require(block_ptr_ph.shape[0] == sum(ph[4] + 1 for ph in phases),
+             "block_ptr_ph length != sum of nb_ph + 1 over the phases")
+    _require(tiles_t.data_ptr() % 16 == 0 and slabs.data_ptr() % 16 == 0,
+             "tiles_t and slabs must be 16-byte aligned")
+    table = _phase_table(tuple(phases), dev)
+    n_partials = sum(ph[4] for ph in phases)
+    partials = torch.empty((n_partials, k8, R), dtype=torch.float32,
+                           device=dev)
+    if partials.numel():
+        err = load_library().tmulti_phased_launch(
+            table.data_ptr(), len(phases), block_ptr_ph.data_ptr(),
+            pair_chunk_ph.data_ptr(), tiles_t.data_ptr(), slabs.data_ptr(),
+            partials.data_ptr(), n_partials, C, R, k8, int(split),
+            _stream(slabs))
+        check_launch("windowed_matmul_tmulti_phased", err)
+        windowed_matmul_tmulti_phased.launches += 1
+    firsts = [0, *itertools.accumulate(ph[4] for ph in phases)]
+    return _combine_phases(
+        [partials[a:b] for a, b in zip(firsts, firsts[1:])], phases, nb)
+
+
+windowed_matmul_tmulti_phased.launches = 0
+
+
+# ---- B3 / B4: natural-layout two-pair contractions ----------------------
+
+def _natural_checks(name, pair_block, tiles, slabs, *, planes: int):
+    """The JAX wrappers' contract checks; returns (R, C, k8)."""
+    P, R, CW = tiles.shape
+    C = CW // planes
+    _require(P % 2 == 0,
+             f"{name} requires an even pair count, got {P}; pad per-block "
+             "runs to even length (WindowedPairs.from_csr pairs_per_step=2 "
+             "branch)")
+    _require(pair_block.shape[0] == P, "pair_block length != tile count")
+    _require(slabs.shape[2] == CW,
+             f"slab width {slabs.shape[2]} != tile width {CW}")
+    return R, C, slabs.shape[1]
+
+
+def _natural_launch(wrapper, pair_chunk, block_ptr, tiles, slabs, *, nb, R,
+                    C, k8, mode: int, dtype: torch.dtype) -> torch.Tensor:
+    """B3 / B4 on the card for ``wrapper``, counted in its ``launches``."""
+    name = wrapper.__name__
+    dev = slabs.device
+    for arg, x, dt in (("tiles", tiles, dtype), ("slabs", slabs, dtype),
+                       ("pair_chunk", pair_chunk, torch.int32),
+                       ("block_ptr", block_ptr, torch.int32)):
+        _require(x.device == dev and x.dtype == dt and x.is_contiguous(),
+                 f"{name} kernel: {arg} must be a contiguous {dt} tensor on "
+                 f"{dev}, got {x.dtype} on {x.device}")
+    _require(block_ptr.shape[0] == nb + 1, "block_ptr length != nb + 1")
+    _require(C % 128 == 0 and R % 8 == 0 and k8 % 8 == 0,
+             f"{name} kernel needs C % 128 == 0, R % 8 == 0 and k8 % 8 == 0, "
+             f"got C={C}, R={R}, k8={k8}")
+    _require(tiles.data_ptr() % 16 == 0 and slabs.data_ptr() % 16 == 0,
+             "tiles and slabs must be 16-byte aligned")
+    out = torch.empty((nb, R, k8), dtype=torch.float32, device=dev)
+    if out.numel():
+        err = load_library().natural_launch(
+            block_ptr.data_ptr(), pair_chunk.data_ptr(), tiles.data_ptr(),
+            slabs.data_ptr(), out.data_ptr(), nb, C, R, k8, mode,
+            _stream(slabs))
+        check_launch(name, err)
+        wrapper.launches += 1
+    return out
+
+
+def windowed_matmul_split3_plain(pair_block, pair_chunk, tiles_split, slabs,
+                                 *, nb: int) -> torch.Tensor:
+    """Plain version of B3 on any device: gather each pair's slab, three
+    batched f32 matmuls ``th.sh + tl.sh + th.sl``, block segment-sum."""
+    C = tiles_split.shape[2] // 2
+    sl = slabs.index_select(0, pair_chunk).to(torch.float32).transpose(1, 2)
+    t = tiles_split.to(torch.float32)
+    prods = (torch.bmm(t[..., :C], sl[:, :C]) + torch.bmm(t[..., C:], sl[:, :C])
+             + torch.bmm(t[..., :C], sl[:, C:]))
+    out = prods.new_zeros((nb,) + tuple(prods.shape[1:]))
+    return out.index_add_(0, pair_block, prods)
+
+
+def windowed_matmul_split3(pair_block, pair_chunk, block_ptr, tiles_split,
+                           slabs, *, nb: int) -> torch.Tensor:
+    """Natural-layout split3 contraction, ``(nb, R, k8)`` f32 (the JAX
+    package's ``windowed_matmul_split3``, which runs ``chunk_slabs``
+    itself; here the caller passes its ``split=True`` slabs).
+
+    ``tiles_split``: (P, R, 2C) bf16 ``[hi | lo]``, block-sorted with
+    even per-block runs (``P`` even, checked); ``block_ptr`` (nb + 1)
+    bounds each block's run (the kernel's work list); ``slabs``:
+    (n_chunks, k8, 2C) bf16 from ``chunk_slabs(split=True)``."""
+    R, C, k8 = _natural_checks("windowed_matmul_split3", pair_block,
+                               tiles_split, slabs, planes=2)
+    if not _on_kernel_device(slabs):
+        return windowed_matmul_split3_plain(pair_block, pair_chunk,
+                                            tiles_split, slabs, nb=nb)
+    return _natural_launch(windowed_matmul_split3, pair_chunk, block_ptr,
+                           tiles_split, slabs, nb=nb, R=R, C=C, k8=k8,
+                           mode=0, dtype=torch.bfloat16)
+
+
+windowed_matmul_split3.launches = 0
+
+
+def windowed_matmul_single_plain(pair_block, pair_chunk, tiles, slabs, *,
+                                 nb: int) -> torch.Tensor:
+    """Plain version of B4 on any device: slabs cast to the tiles' dtype,
+    one batched matmul in f32 (f64 for f64 tiles), block segment-sum."""
+    acc = torch.promote_types(torch.float32, tiles.dtype)
+    sl = slabs.to(tiles.dtype).index_select(0, pair_chunk).to(acc)
+    prods = torch.bmm(tiles.to(acc), sl.transpose(1, 2))
+    out = prods.new_zeros((nb,) + tuple(prods.shape[1:]))
+    return out.index_add_(0, pair_block, prods)
+
+
+def windowed_matmul_single(pair_block, pair_chunk, block_ptr, tiles, slabs,
+                           *, nb: int) -> torch.Tensor:
+    """Natural-layout one-plane contraction, ``(nb, R, k8)`` f32: the JAX
+    package's ``windowed_matmul_pallas`` (kernel ``_kernel_plain``), with
+    the caller's ``chunk_slabs(split=False)`` slabs. f32 tiles run at
+    full f32 precision, bf16 tiles with f32 accumulation; the slabs are
+    cast to the tiles' dtype first, as the reference does (the kernel
+    takes them already cast). ``tiles``: (P, R, C), even per-block runs
+    (``P`` even, checked); ``slabs``: (n_chunks, k8, C)."""
+    R, C, k8 = _natural_checks("windowed_matmul_single", pair_block, tiles,
+                               slabs, planes=1)
+    if not _on_kernel_device(slabs):
+        return windowed_matmul_single_plain(pair_block, pair_chunk, tiles,
+                                            slabs, nb=nb)
+    _require(tiles.dtype in (torch.float32, torch.bfloat16),
+             f"windowed_matmul_single kernel takes float32 or bfloat16 "
+             f"tiles, got {tiles.dtype}")
+    return _natural_launch(windowed_matmul_single, pair_chunk, block_ptr,
+                           tiles, slabs, nb=nb, R=R, C=C, k8=k8,
+                           mode=2 if tiles.dtype == torch.float32 else 1,
+                           dtype=tiles.dtype)
+
+
+windowed_matmul_single.launches = 0
+
+_COUNTED = {"B1": windowed_matmul_tmulti, "B2": chunk_slabs,
+            "B3": windowed_matmul_split3, "B4": windowed_matmul_single,
+            "B6": windowed_matmul_tmulti_phased}
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
-    return {"B1": windowed_matmul_tmulti.launches,
-            "B2": chunk_slabs.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    windowed_matmul_tmulti.launches = 0
-    chunk_slabs.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
 
 
-# ---- one-shot SpMM (U>2 branch of spmm_windowed_pallas) -------------
+# ---- one-shot SpMM (spmm_windowed_pallas) ---------------------------
 
 def spmm_windowed_cuda(wp: WindowedPairs,
                        v_p: torch.Tensor) -> torch.Tensor:
-    """Padded-permuted-space SpMM through B2 then B1: ``(pad_rows, k) ->
-    (pad_rows, k)``, ``k % 8 == 0``. The caller routes here only for U>2
-    formats with transposed planes and ``R % 128 == 0`` (the reference's
-    kernel gates); the spill, if any, is restored by ``_finish``."""
+    """Padded-permuted-space SpMM through the kernels: ``(pad_rows, k) ->
+    (pad_rows, k)``, ``k % 8 == 0``. U>2 formats (routed here with
+    transposed planes and ``R % 128 == 0``, the reference's gates): B2
+    then B1, or B6 on a phase layout. U=2 formats: B2 then B3 for split
+    f32 planes, else B2 then B4 on ``v`` cast to the tiles' dtype. The
+    spill, if any, is restored by ``_finish``."""
     from .windowed import _finish
 
-    R = wp.block_rows
+    R, C = wp.block_rows, wp.chunk_cols
     nb = wp.n_blocks
     k = v_p.shape[1]
     split = wp.split
+    if wp.pairs_per_step <= 2:
+        if split:
+            slabs = chunk_slabs(v_p.to(torch.float32).contiguous(), C=C,
+                                split=True)
+            computed = windowed_matmul_split3(
+                wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_split,
+                slabs, nb=nb)
+        else:
+            slabs = chunk_slabs(v_p.to(wp.tiles.dtype).contiguous(), C=C,
+                                split=False)
+            computed = windowed_matmul_single(
+                wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles, slabs,
+                nb=nb)
+        return _finish(wp, computed.reshape(nb * R, k), v_p)
     slab_dtype = torch.float32 if split else wp.tiles_t.dtype
-    slabs = chunk_slabs(v_p.to(slab_dtype).contiguous(), C=wp.chunk_cols,
-                        split=split)
-    out_t = windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
-        nb=nb, pairs_per_step=wp.pairs_per_step, split=split)
+    slabs = chunk_slabs(v_p.to(slab_dtype).contiguous(), C=C, split=split)
+    if wp.phases is not None:
+        out_t = windowed_matmul_tmulti_phased(
+            wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, wp.tiles_t,
+            slabs, nb=nb, phases=wp.phases,
+            chunks_per_phase=wp.chunks_per_phase,
+            pairs_per_step=wp.pairs_per_step, split=split)
+    else:
+        out_t = windowed_matmul_tmulti(
+            wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
+            nb=nb, pairs_per_step=wp.pairs_per_step, split=split)
     computed = out_t.transpose(1, 2).reshape(nb * R, k)
     return _finish(wp, computed, v_p)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats.matrix import COO, CSR
+from ..formats.matrix import COO, CSR, as_float64
 
 __all__ = ["spmm_coo", "spmm_host_f64"]
 
@@ -30,11 +30,12 @@ def spmm_coo(coo: COO, v: torch.Tensor) -> torch.Tensor:
 
 def spmm_host_f64(csr: CSR, v) -> np.ndarray:
     """Host-side float64 oracle (numpy, no device involved). Row sums via
-    exclusive-cumsum differencing — vectorized and robust to empty rows."""
-    vals = np.asarray(csr.values, dtype=np.float64)
+    exclusive-cumsum differencing — vectorized and robust to empty rows.
+    bfloat16 values or ``v`` (``uint16`` bits) are decoded first."""
+    vals = as_float64(csr.values)
     cols = np.asarray(csr.col_indices)
     row_ptr = np.asarray(csr.row_ptr).astype(np.int64)
-    v = np.asarray(v, dtype=np.float64)
+    v = as_float64(v)
     prods = vals[:, None] * v[cols]
     csum = np.concatenate(
         [np.zeros((1, v.shape[1])), np.cumsum(prods, axis=0)], axis=0)

@@ -10,8 +10,9 @@ block-sorted products:
 
 Dispatch follows the fat vector's device: a CPU tensor takes the plain
 path, a CUDA tensor the Hopper kernels of ``ops/cuda_windowed.py`` behind
-the reference's own routing gates (``k % 8`` with ``KPAD_MIN_K`` padding,
-U>2 transposed planes, ``R % 128``, ``k8 % 16`` for the fused chain
+the reference's own routing gates (``k % 8`` with ``KPAD_MIN_K`` padding;
+U>2 transposed planes with ``R % 128`` -> B1, or B6 on a phase layout;
+U=2 -> B3 for split f32 planes, else B4; ``k8 % 16`` for the fused chain
 state), so the card takes the route the TPU took.
 
 Core functions live in the operand's padded permuted space
@@ -55,18 +56,32 @@ def _finish(wp: WindowedPairs, out_blocks: torch.Tensor,
     return out
 
 
-def _plain_tiles(wp: WindowedPairs) -> torch.Tensor:
-    """The (P, R, C) tiles of the plain path: the operand's own, or, in a
-    card copy that holds only the kernels' transposed planes, rebuilt from
-    ``tiles_t`` (exact for one plane; hi + lo, within 2**-17 relative of
-    the f32 tile, for split planes, the precision the kernels use)."""
+def _plain_pairs(wp: WindowedPairs):
+    """``(tiles (P, R, C), pair_block, pair_chunk)`` of the plain path:
+    the operand's own block-major pairs, or, in a card copy that holds
+    only the kernels' planes, tiles rebuilt from them (exact for one
+    plane; hi + lo, within 2**-17 relative of the f32 tile, for split
+    planes, the precision the kernels use). A phase-major ``tiles_t``
+    comes with its pairs' global block and chunk ids; its dummy tiles
+    are zero."""
+    C = wp.chunk_cols
     if wp.tiles is not None:
-        return wp.tiles
+        return wp.tiles, wp.pair_block, wp.pair_chunk
+    if wp.tiles_t is None:  # U=2 f32: the natural split planes
+        t = wp.tiles_split
+        return (t[..., :C].to(torch.float32) + t[..., C:].to(torch.float32),
+                wp.pair_block, wp.pair_chunk)
     t = wp.tiles_t
     if wp.split:
-        C = wp.chunk_cols
         t = t[:, :C].to(torch.float32) + t[:, C:].to(torch.float32)
-    return t.transpose(1, 2)
+    t = t.transpose(1, 2)
+    if wp.phases is None:
+        return t, wp.pair_block, wp.pair_chunk
+    counts = torch.tensor([ph[1] for ph in wp.phases], device=t.device)
+    chunk_lo = torch.tensor([ph[2] for ph in wp.phases], device=t.device)
+    block_lo = torch.tensor([ph[3] for ph in wp.phases], device=t.device)
+    return (t, wp.pair_block_ph + block_lo.repeat_interleave(counts),
+            wp.pair_chunk_ph + chunk_lo.repeat_interleave(counts))
 
 
 def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
@@ -77,7 +92,7 @@ def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     nb = wp.n_blocks
     k = v_p.shape[1]
     n_chunks = wp.n_chunks
-    tiles = _plain_tiles(wp)
+    tiles, pair_block, pair_chunk = _plain_pairs(wp)
     # f32 accumulation even for bf16 operands; operands cast to the tile
     # dtype first, as the reference does.
     out_dtype = torch.promote_types(
@@ -85,10 +100,10 @@ def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     if v_p.dtype != tiles.dtype:
         v_p = v_p.to(tiles.dtype)
     slabs = v_p[: n_chunks * C].reshape(n_chunks, C * k).index_select(
-        0, wp.pair_chunk).reshape(-1, C, k)
+        0, pair_chunk).reshape(-1, C, k)
     prods = torch.bmm(tiles.to(out_dtype), slabs.to(out_dtype))
     out_blocks = prods.new_zeros((nb, R, k))
-    out_blocks.index_add_(0, wp.pair_block, prods)
+    out_blocks.index_add_(0, pair_block, prods)
     return _finish(wp, out_blocks.reshape(nb * R, k), v_p)
 
 
@@ -97,18 +112,14 @@ def spmm_windowed_core(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     CUDA tensor, the reference's kernel routing: narrow unaligned ``k``
     (``< KPAD_MIN_K``) and U>2 formats without a 128-multiple ``R`` take
     the plain path, other ``k`` are zero-padded to a multiple of 8 and go
-    through the kernels B2 + B1. U=2 formats run kernels B3/B4 there,
-    which are not ported yet, so they raise."""
+    through the kernels: B2 then B1 (B6 on a phase layout) for U>2, B2
+    then B3 (split f32 planes) or B4 (one plane) for U=2."""
     k = v_p.shape[1]
     k_pad = (-k) % 8
     if v_p.device.type == "cpu" or (k_pad and k < KPAD_MIN_K):
         return spmm_windowed_xla(wp, v_p)
-    if wp.pairs_per_step <= 2:
-        raise NotImplementedError(
-            "pairs_per_step=2 windowed formats run kernels B3/B4 "
-            "(pallas_windowed._kernel_split3 / _kernel_plain), not ported "
-            "yet; build with the default pairs_per_step")
-    if wp.tiles_t is None or wp.block_rows % 128:
+    if wp.pairs_per_step > 2 and (wp.tiles_t is None
+                                  or wp.block_rows % 128):
         return spmm_windowed_xla(wp, v_p)
     from .cuda_windowed import spmm_windowed_cuda
 
@@ -127,8 +138,10 @@ def windowed_t_chain(wp: WindowedPairs, k: int):
     The state is the slab array itself — ``(n_chunks, k8, 2C)`` bf16
     ``[hi | lo]`` for f32 operands. ``enc`` permutes, pads and splits once
     (B2), each ``body`` is one B1 launch whose fused epilogue writes the
-    next state (``k8 % 16 == 0``; otherwise B1 plus ``resplit_slabs``),
-    ``dec`` adds hi + lo, transposes and undoes the permutation. On CPU
+    next state (``k8 % 16 == 0``; otherwise B1 plus ``resplit_slabs``) or,
+    on a phase layout, the phased contraction (B6) plus
+    ``resplit_slabs``; ``dec`` adds hi + lo, transposes and undoes the
+    permutation. On CPU
     tensors the same steps run the kernels' plain versions. Accuracy: the
     state round-trips through bf16 hi + lo each step (~4e-6 relative),
     inside the f32 tier of ``utils/compare.py``.
@@ -145,6 +158,7 @@ def windowed_t_chain(wp: WindowedPairs, k: int):
         return None  # the reference's compiled-kernel gate
     from .cuda_windowed import (
         chunk_slabs, resplit_slabs, windowed_matmul_tmulti,
+        windowed_matmul_tmulti_phased,
     )
 
     split = wp.split
@@ -161,6 +175,14 @@ def windowed_t_chain(wp: WindowedPairs, k: int):
     def body(state, op):
         kwargs = dict(nb=op.n_blocks, pairs_per_step=op.pairs_per_step,
                       split=split)
+        if op.phases is not None:
+            out_t = windowed_matmul_tmulti_phased(
+                op.pair_block_ph, op.pair_chunk_ph, op.block_ptr_ph,
+                op.tiles_t, state, phases=op.phases,
+                chunks_per_phase=op.chunks_per_phase, **kwargs)
+            if split:
+                return resplit_slabs(out_t)
+            return out_t.to(slab_dtype)
         if k8 % 16 == 0:
             return windowed_matmul_tmulti(
                 op.pair_block, op.pair_chunk, op.block_ptr, op.tiles_t,

@@ -11,6 +11,7 @@ divergence; SURVEY.md §7 "hard parts" (b)).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["are_matrices_equal", "max_abs_error", "default_tolerance"]
 
@@ -20,8 +21,13 @@ DEFAULT_ABS_TOL = 1e-6
 
 def default_tolerance(dtype) -> float:
     """Dtype-aware absolute tolerance: the reference's 1e-6 for f64;
-    looser for the TPU-native low-precision dtypes."""
-    dtype = np.dtype(dtype) if not hasattr(dtype, "itemsize") else np.dtype(str(dtype))
+    looser for the TPU-native low-precision dtypes. Takes a numpy or a
+    torch dtype; ``torch.bfloat16`` (and the ``uint16`` bits that carry
+    it on the host) is the bf16 tier."""
+    if isinstance(dtype, torch.dtype):
+        dtype = {torch.float64: np.float64,
+                 torch.float32: np.float32}.get(dtype, np.float16)
+    dtype = np.dtype(dtype)
     if dtype == np.float64:
         return DEFAULT_ABS_TOL
     if dtype == np.float32:

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (B1, B2, B5) against their
-plain PyTorch versions and the host f64 oracle.
+"""Card-only tests of the port's CUDA kernels (B1-B7) against their plain
+PyTorch versions and the host f64 oracle.
 
 Every test here needs an NVIDIA GPU and ``nvcc``; elsewhere each one
 skips from inside the ``cuda`` fixture. The file imports no JAX, so it
@@ -7,6 +7,8 @@ runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,13 +22,15 @@ from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import (
 )
 from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import COO
 from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
-    WindowedPairs,
+    WindowedPairs, _phase_block_ptr, _phase_fields,
 )
 from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
-    banded_csr, fem3d_csr, generate_fat_vector, random_csr,
+    banded_csr, fem3d_csr, generate_fat_vector, powerlaw_csr, random_csr,
 )
 from sparsematrixmultiplicationmpi_tpu_torch.models import conjugate_gradient
 from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_banded as cb
+from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_gather as cg
+from sparsematrixmultiplicationmpi_tpu_torch.ops import ell as ell_ops
 from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_windowed as cw
 from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
 from sparsematrixmultiplicationmpi_tpu_torch.ops.oracle import spmm_host_f64
@@ -65,6 +69,11 @@ def _slabs(wp, k, dev, seed):
     v = generate_fat_vector(wp.shape[1], k, seed=seed).astype(np.float32)
     v_p = wp.encode(torch.from_numpy(v).to(dev)).contiguous()
     return v, v_p, cw.chunk_slabs(v_p, C=wp.chunk_cols, split=True)
+
+
+def _counts(**nonzero):
+    """The windowed kernels' launch counts: zero but for ``nonzero``."""
+    return {**dict.fromkeys(("B1", "B2", "B3", "B4", "B6"), 0), **nonzero}
 
 
 def _assert_b1_close(got, want, cond):
@@ -150,7 +159,7 @@ def test_kernels_count_launches(cuda):
     cw.windowed_matmul_tmulti(
         wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
         nb=wp.n_blocks, pairs_per_step=8)
-    assert cw.launch_counts() == {"B1": 1, "B2": 1}
+    assert cw.launch_counts() == _counts(B1=1, B2=1)
 
 
 def test_card_copy_holds_only_what_its_route_reads(cuda):
@@ -167,7 +176,7 @@ def test_card_copy_holds_only_what_its_route_reads(cuda):
     v = generate_fat_vector(512, 5, seed=7).astype(np.float32)
     cw.reset_launch_counts()
     out = spmm_windowed(wp, torch.from_numpy(v).to(cuda))
-    assert cw.launch_counts() == {"B1": 0, "B2": 0}
+    assert cw.launch_counts() == _counts()
     ref = spmm_host_f64(csr, v)
     err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < 5e-3
@@ -181,7 +190,7 @@ def test_chain_on_card_matches_oracle(cuda):
     enc, body, dec = windowed_t_chain(wp, 16)
     cw.reset_launch_counts()
     out = dec(body(enc(torch.from_numpy(v).to(cuda), wp), wp), wp)
-    assert cw.launch_counts() == {"B1": 1, "B2": 1}
+    assert cw.launch_counts() == _counts(B1=1, B2=1)
     ref = spmm_host_f64(csr, v)
     err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < 5e-3
@@ -282,3 +291,240 @@ def test_cg_on_card_runs_b5_once_per_iteration(cuda):
     resid = b - spmm_host_f64(csr, x)
     assert (np.linalg.norm(resid, axis=0)
             / np.linalg.norm(b, axis=0)).max() < 1e-4
+
+
+# ---- B3 / B4: the two-pair natural-layout kernels -------------------------
+
+#: Every (R, C) of ``DEFAULT_CANDIDATES`` with R in {8, 64, 256, 512}.
+NATURAL_SHAPES = [(8, 128), (64, 128), (64, 256), (256, 128), (256, 256),
+                  (256, 512), (512, 512)]
+
+
+def _u2(csr, R, C):
+    wp = WindowedPairs.from_csr(
+        csr, block_rows=R, chunk_cols=C, reorder=None, pairs_per_step=2,
+        beat_gather_margin=1e9, max_inflation=1e9, allow_spill=False)
+    assert wp is not None and wp.n_pairs % 2 == 0 and wp.spill is None
+    return wp
+
+
+def _natural_case(host, mode, v_p, dev):
+    """(kernel, plain, tiles, slabs) of one two-pair mode."""
+    C = host.chunk_cols
+    if mode == "split3":
+        tiles = torch.from_numpy(host.tiles_split.view(np.int16)).to(
+            dev).view(torch.bfloat16)
+        slabs = cw.chunk_slabs(v_p, C=C, split=True)
+        return (cw.windowed_matmul_split3, cw.windowed_matmul_split3_plain,
+                tiles, slabs)
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    tiles = torch.from_numpy(host.tiles).to(dev).to(dtype)
+    slabs = cw.chunk_slabs(v_p.to(dtype).contiguous(), C=C, split=False)
+    return (cw.windowed_matmul_single, cw.windowed_matmul_single_plain,
+            tiles, slabs)
+
+
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("R,C", NATURAL_SHAPES)
+@pytest.mark.parametrize("mode", ["split3", "bf16", "f32"])
+def test_natural_kernels_match_plain(cuda, mode, R, C, k):
+    csr = fem3d_csr(1024, 16000, seed=8).astype(np.float32)
+    host = _u2(csr, R, C)
+    wp = host.to(cuda)
+    v = generate_fat_vector(1024, k, seed=R + C + k).astype(np.float32)
+    v_p = wp.encode(torch.from_numpy(v).to(cuda)).contiguous()
+    kernel, plain, tiles, slabs = _natural_case(host, mode, v_p, cuda)
+    cw.reset_launch_counts()
+    got = kernel(wp.pair_block, wp.pair_chunk, wp.block_ptr, tiles, slabs,
+                 nb=wp.n_blocks)
+    name = "B3" if mode == "split3" else "B4"
+    assert cw.launch_counts() == _counts(**{"B2": 0, name: 1})
+    want = plain(wp.pair_block, wp.pair_chunk, tiles, slabs, nb=wp.n_blocks)
+    cond = plain(wp.pair_block, wp.pair_chunk, tiles.abs(), slabs.abs(),
+                 nb=wp.n_blocks)
+    torch.cuda.synchronize()
+    assert got.shape == (wp.n_blocks, R, k)
+    _assert_b1_close(got, want, cond)
+
+
+def test_natural_kernel_empty_run_writes_zeros(cuda):
+    host = _u2(fem3d_csr(1024, 16000, seed=8).astype(np.float32), 64, 128)
+    wp = host.to(cuda)
+    v_p = wp.encode(torch.from_numpy(generate_fat_vector(
+        1024, 8, seed=1).astype(np.float32)).to(cuda)).contiguous()
+    kernel, _, tiles, slabs = _natural_case(host, "split3", v_p, cuda)
+    bp = wp.block_ptr.clone()
+    bp[1] = bp[0]  # block 0's run becomes empty
+    out = kernel(wp.pair_block, wp.pair_chunk, bp, tiles, slabs,
+                 nb=wp.n_blocks)
+    assert torch.count_nonzero(out[0]) == 0 and torch.count_nonzero(out[1])
+
+
+def test_odd_run_two_pair_operand_is_refused(cuda):
+    host = WindowedPairs.from_csr(
+        fem3d_csr(512, 8192, seed=2).astype(np.float32), block_rows=8,
+        chunk_cols=128, reorder=None, pairs_per_step=4,
+        beat_gather_margin=1e9, max_inflation=1e9)
+    assert (np.diff(host.block_ptr) % 2).any()
+    odd = dataclasses.replace(host, pairs_per_step=2, tiles_t=None)
+    with pytest.raises(ValueError, match="two-pair kernel contract"):
+        odd.to(cuda)
+    wp = _u2(fem3d_csr(1024, 16000, seed=8).astype(np.float32), 64,
+             128).to(cuda)
+    slabs = torch.zeros((wp.n_chunks, 8, 256), dtype=torch.bfloat16,
+                        device=cuda)
+    with pytest.raises(ValueError, match="even pair count"):
+        cw.windowed_matmul_split3(wp.pair_block[:-1], wp.pair_chunk[:-1],
+                                  wp.block_ptr, wp.tiles_split[:-1], slabs,
+                                  nb=wp.n_blocks)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cw.windowed_matmul_single(
+            wp.pair_block, wp.pair_chunk, wp.block_ptr,
+            wp.tiles_split[..., :128].double(), slabs[..., :128].double(),
+            nb=wp.n_blocks)
+
+
+@pytest.mark.parametrize("k", [5, 12, 32])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_two_pair_spmm_on_card_matches_oracle(cuda, dtype, k):
+    """The whole U=2 route with a spill: B2 + B3 (f32) or B2 + B4 (bf16)
+    for k = 12, 32 (12 zero-padded to 16); k = 5 takes the plain path."""
+    csr = powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
+    if dtype == "bfloat16":
+        csr = csr.astype(torch.bfloat16)
+    wp = WindowedPairs.from_csr(csr, block_rows=128, chunk_cols=128,
+                                pairs_per_step=2, beat_gather_margin=np.inf)
+    assert wp is not None and wp.spill is not None
+    wp = wp.to(cuda)
+    assert (wp.tiles is None) == (dtype == np.float32)
+    v = generate_fat_vector(2000, k, seed=k).astype(np.float32)
+    vt = torch.from_numpy(v).to(cuda)
+    if dtype == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+    cw.reset_launch_counts()
+    out = spmm_any(wp, vt)
+    if k == 5:
+        assert cw.launch_counts() == _counts()
+    else:
+        name = "B3" if dtype == np.float32 else "B4"
+        assert cw.launch_counts() == _counts(**{"B2": 1, name: 1})
+    ref = spmm_host_f64(csr, vt.cpu().float().numpy())
+    err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
+    assert err < (5e-3 if dtype == np.float32 else 5e-2)
+
+
+# ---- B6: the phased kernel ------------------------------------------------
+
+def _phased(csr, *, multi):
+    wp = WindowedPairs.from_csr(
+        csr, block_rows=128, chunk_cols=128, reorder=None, pairs_per_step=8,
+        beat_gather_margin=1e9, max_inflation=1e9, phase_layout=True)
+    assert wp.phases is not None
+    if multi:
+        tiles_t, pb_ph, pc_ph, phases = _phase_fields(
+            wp.tiles, wp.tiles_split, wp.pair_block, wp.pair_chunk,
+            wp.n_blocks, wp.n_chunks, 2, 8)
+        wp = dataclasses.replace(
+            wp, tiles_t=tiles_t, pair_block_ph=pb_ph, pair_chunk_ph=pc_ph,
+            phases=phases, chunks_per_phase=2,
+            block_ptr_ph=_phase_block_ptr(pb_ph, phases))
+        assert len(wp.phases) > 1
+    return wp
+
+
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("multi", [False, True], ids=["one", "multi"])
+@pytest.mark.parametrize("streamed", [False, True],
+                         ids=["resident", "streamed"])
+def test_phased_matches_plain(cuda, streamed, multi, dtype, k):
+    csr = fem3d_csr(1024, 16384, seed=11).astype(np.float32)
+    wp = _phased(csr, multi=multi)
+    if dtype == "bfloat16":
+        wp = wp.astype(torch.bfloat16)
+    wp = wp.to(cuda)
+    split = wp.split
+    v = torch.from_numpy(generate_fat_vector(1024, k, seed=k).astype(
+        np.float32)).to(cuda)
+    v_p = wp.encode(v if split else v.to(torch.bfloat16)).contiguous()
+    slabs = cw.chunk_slabs(v_p, C=128, split=split)
+    args = (wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, wp.tiles_t,
+            slabs)
+    kw = dict(nb=wp.n_blocks, phases=wp.phases, split=split)
+    cw.reset_launch_counts()
+    got = cw.windowed_matmul_tmulti_phased(
+        *args, chunks_per_phase=wp.chunks_per_phase, pairs_per_step=8,
+        force_streamed=streamed, **kw)
+    expect = (_counts(B1=len(wp.phases)) if streamed
+              else _counts(B6=1))
+    assert cw.launch_counts() == expect
+    want = cw.windowed_matmul_tmulti_phased_plain(
+        wp.pair_block_ph, wp.pair_chunk_ph, wp.tiles_t, slabs, **kw)
+    cond = cw.windowed_matmul_tmulti_phased_plain(
+        wp.pair_block_ph, wp.pair_chunk_ph, wp.tiles_t.abs(), slabs.abs(),
+        **kw)
+    torch.cuda.synchronize()
+    _assert_b1_close(got, want, cond)
+
+
+def test_phased_routes_on_card_match_oracle(cuda):
+    """One-shot SpMM and the transposed chain on a multi-phase operand:
+    B2 + B6 per call; the plain narrow-k route on the phase-major planes."""
+    csr = banded_csr(1024, 24, 8, seed=41).astype(np.float32)
+    wp = _phased(csr, multi=True).to(cuda)
+    assert wp.tiles is None and wp.supports_transposed_chain
+    v = generate_fat_vector(1024, 16, seed=42).astype(np.float32)
+    cw.reset_launch_counts()
+    out = spmm_windowed(wp, torch.from_numpy(v).to(cuda))
+    assert cw.launch_counts() == _counts(B2=1, B6=1)
+    assert _rel_to_oracle(out, csr, v) < 5e-3
+    enc, body, dec = windowed_t_chain(wp, 16)
+    out = dec(body(body(enc(torch.from_numpy(v).to(cuda), wp), wp), wp), wp)
+    ref = spmm_host_f64(csr, spmm_host_f64(csr, v))
+    err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
+    assert err < 5e-3
+    assert cw.launch_counts() == _counts(B2=2, B6=3)
+    v5 = generate_fat_vector(1024, 5, seed=43).astype(np.float32)
+    out = spmm_windowed(wp, torch.from_numpy(v5).to(cuda))
+    assert cw.launch_counts() == _counts(B2=2, B6=3)
+    assert _rel_to_oracle(out, csr, v5) < 5e-3
+
+
+# ---- B7: the spill's explicit-gather route --------------------------------
+
+@pytest.mark.parametrize("k", [1, 8, 32, 100, 128])
+@pytest.mark.parametrize("w", [1, 5, 40])
+def test_ell_gather_matches_plain(cuda, w, k):
+    rng = np.random.default_rng(w * 1000 + k)
+    rows, n = 1000, 3000
+    cols = torch.from_numpy(rng.integers(0, n, (rows, w)).astype(
+        np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(rows, w)).astype(
+        np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(scale=10.0, size=(n, k)).astype(
+        np.float32)).to(cuda)
+    cg.reset_launch_counts()
+    got = cg.ell_gather_rows(cols, vals, v)
+    assert cg.launch_counts() == {"B7": 1}
+    want = cg.ell_gather_rows_plain(cols, vals, v)
+    cond = cg.ell_gather_rows_plain(cols, vals.abs(), v.abs())
+    torch.cuda.synchronize()
+    _assert_b1_close(got, want, cond)
+    with pytest.raises(ValueError, match="k <= 128"):
+        cg.ell_gather_rows(cols, vals, torch.zeros((n, 129), device=cuda))
+
+
+def test_spill_through_the_gather_kernel(cuda, monkeypatch):
+    csr = powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
+    wp = WindowedPairs.from_csr(csr, block_rows=128, chunk_cols=128,
+                                pairs_per_step=2, beat_gather_margin=np.inf)
+    wp = wp.to(cuda)
+    v = generate_fat_vector(2000, 32, seed=3).astype(np.float32)
+    vt = torch.from_numpy(v).to(cuda)
+    take = spmm_any(wp, vt)
+    monkeypatch.setattr(ell_ops, "SPILL_DMA_GATHER", True)
+    cg.reset_launch_counts()
+    dma = spmm_any(wp, vt)
+    assert cg.launch_counts() == {"B7": len(wp.spill.buckets)}
+    assert _rel_to_oracle(dma, csr, v) < 5e-3
+    assert _rel_to_oracle(take, csr, v) < 5e-3

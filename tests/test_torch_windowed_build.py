@@ -223,9 +223,14 @@ def test_from_arrays_takes_the_jax_operand():
 
 
 def test_unported_options_raise():
-    tc = TG.fem3d_csr(256, 4096, seed=0).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="B6"):
-        TW.WindowedPairs.from_csr(tc, phase_layout=True)
+    jc, tc = _both(lambda g: g.fem3d_csr(256, 4096, seed=0))
+    # phase_layout=True is ported (kernel B6): the build matches the JAX
+    # package's.
+    kw = dict(phase_layout=True, beat_gather_margin=1e9, max_inflation=1e9)
+    jw, tw = JW.WindowedPairs.from_csr(jc, **kw), TW.WindowedPairs.from_csr(
+        tc, **kw)
+    assert_windowed_equal(jw, tw)
+    assert (tw.phases is None) == (jw.phases is None)
     with pytest.raises(NotImplementedError, match="hub"):
         TA.auto_format(tc, allow_hub=True)
     with pytest.raises(ValueError, match="pairs_per_step"):
