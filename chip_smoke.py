@@ -34,11 +34,13 @@ with the fused next-state epilogue; dec). Phases:
    ``run_benchmark`` rate;
 6. two-pair path: ``Auto(pairs_per_step=2)`` on the cop20k stand-in
    (route R = C = 256, U = 2, 2,270 pairs, 474 blocks, a spill). B3
-   (split3) and B4 (f32, one plane) against their plain versions at
-   k = 32, B7 on each spill bucket against the take route, all within
-   ``1e-5 * cond + 1e-6``; then, with the counts zeroed, a one-shot
-   ``spmm_any`` with the spill through the take route, one with the
-   spill through B7 (``SPILL_DMA_GATHER``), and the amortized
+   (split3) and B4 (f32, one plane; on the build's tiles and on
+   full-mantissa ones) against their plain versions at k = 32, B7 (one
+   launch over every spill bucket, and each bucket alone) against the
+   take route, all within ``1e-5 * cond + 1e-6``; then, with the counts
+   zeroed, a one-shot ``spmm_any`` with the spill through the take
+   route, one with the spill through B7 (``SPILL_DMA_GATHER``, one B7
+   launch), and the amortized
    ``run_benchmark`` (encode, iterate = B2 + B3 + spill, decode), each
    against the f64 oracle. The same in bf16 (route R = C = 512, 1,098
    pairs): B4 (bf16) against its plain version, one-shot and amortized
@@ -49,6 +51,12 @@ with the fused next-state epilogue; dec). Phases:
    ``spmm_any`` and the amortized ``run_benchmark`` (body = B6 +
    ``resplit_slabs``), against the f64 oracle; one B6 launch per call.
 
+Beside each kernel the phases time its library yardstick (``library_ms``:
+``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
+on the card outside the timing; none for B2's split mode) and compute
+its bound (``bound_ms``: the larger of its bytes over the H100 SXM's
+3.35 TB/s and its operations over the peak for their type).
+
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 and
 7, one with the kernels, and as the last line
@@ -58,6 +66,7 @@ when any phase fails or no CUDA device is present. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -68,7 +77,7 @@ import numpy as np
 SRC = "sparsematrixmultiplicationmpi_tpu_torch/csrc/windowed_kernels.cu"
 REPLACES = {
     "B1": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:206",
-    "B2": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:122",
+    "B2": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:124",
     "B3": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:95",
     "B4": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:81",
     "B6": "sparsematrixmultiplicationmpi_tpu/ops/pallas_windowed.py:421",
@@ -90,6 +99,11 @@ M_SPD, K_CG = 121_192, 8
 #: underflows to zero in f32 and a tol = 0 solve stops, so both lengths
 #: stay below that.
 CG_SHORT, CG_LONG = 4, 16
+#: The H100 SXM's published dense peaks (NVIDIA's data sheet): HBM bytes
+#: per second, and FLOP/s by operand type (bf16 and TF32 on the tensor
+#: cores, f32 on the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 class PhaseFailed(RuntimeError):
@@ -117,6 +131,63 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float, kind: str) -> dict:
+    """The least time the card could take for a kernel's work, in ms: the
+    larger of its bytes (each input read once, each output written once)
+    over the HBM rate and its operations over the peak for ``kind``, and
+    which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sparse_csr(rows, cols, vals, shape):
+    """A CSR tensor on the card (duplicates summed), the operand of the
+    library call ``torch.sparse.mm`` that stands beside a kernel."""
+    import torch
+
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                  vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def windowed_csr(wp, dtype=None):
+    """The entries a windowed kernel multiplies, as a CSR in the
+    operand's padded-permuted space: tile ``p``'s ``(r, c)`` at row
+    ``block * R + r``, column ``chunk * C + c`` (hi + lo for split
+    planes; a phase layout's pairs with their global ids), in the tiles'
+    dtype or ``dtype``."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import (
+        _plain_pairs,
+    )
+
+    tiles, pair_block, pair_chunk = _plain_pairs(wp)
+    _, R, C = tiles.shape
+    p, r, c = torch.nonzero(tiles, as_tuple=True)
+    return sparse_csr(pair_block.long()[p] * R + r,
+                      pair_chunk.long()[p] * C + c,
+                      tiles[p, r, c].to(dtype or tiles.dtype),
+                      (wp.n_blocks * R, wp.pad_rows))
+
+
+def library_ms(label, a_csr, x, n=50) -> float:
+    """Milliseconds of one ``torch.sparse.mm(a_csr, x)`` (cuSPARSE), the
+    yardstick beside a kernel; the port never calls it."""
+    import torch
+
+    ms = cuda_ms(lambda: torch.sparse.mm(a_csr, x), n)
+    print(f"{label} library call torch.sparse.mm (CSR {tuple(a_csr.shape)} "
+          f"nnz={a_csr._nnz()} {a_csr.dtype}, x {tuple(x.shape)}): {ms} ms")
+    return ms
 
 
 def b1_error(got, want, cond) -> float:
@@ -153,11 +224,21 @@ def kernel_phase(wp, v):
     print(f"B2 chunk_slabs {tuple(v_p.shape)} -> {tuple(slabs.shape)} "
           f"bitwise_equal={same} max_abs_err={err}")
     check(same, "B2 is not bitwise equal to its plain version")
+    n_chunks, k = slabs.shape[0], v_p.shape[1]
+    mode1_ms = cuda_ms(lambda: cw.chunk_slabs(v_p, C=C, split=False), 200)
+    mode1_library_ms = cuda_ms(lambda: v_p.view(n_chunks, C, k).transpose(
+        1, 2).contiguous(), 200)
+    print(f"B2 split mode: no one-call library counterpart (a transpose "
+          f"and a two-plane bf16 split); mode 1 (f32 relayout) {mode1_ms} ms"
+          f", its library call view/transpose/contiguous {mode1_library_ms}"
+          " ms")
     out["B2"] = {"max_abs_err": err,
                  "ms": cuda_ms(lambda: cw.chunk_slabs(v_p, C=C, split=True),
                                200),
                  "plain_ms": cuda_ms(lambda: cw.chunk_slabs_plain(
-                     v_p, C=C, split=True), 50)}
+                     v_p, C=C, split=True), 50),
+                 **bound(nbytes(v_p, slabs), 0, "f32"), "library_ms": None,
+                 "mode1_ms": mode1_ms, "mode1_library_ms": mode1_library_ms}
 
     args = (wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs)
     kw = dict(nb=nb, pairs_per_step=U, split=True)
@@ -188,12 +269,20 @@ def kernel_phase(wp, v):
           f"tolerance_excess={excess}")
     check(excess <= 0, "B1 (fused) outside tolerance of its plain version")
     del want, cond, fused_p
+    P, _, R = wp.tiles_t.shape
+    k8 = slabs.shape[1]
+    a_csr = windowed_csr(wp)
     out["B1"] = {
         "max_abs_err": max(err_unfused, err_fused),
         "ms": cuda_ms(lambda: cw.windowed_matmul_tmulti(
             *args, fuse_resplit=True, **kw), 50),
         "plain_ms": cuda_ms(lambda: cw.windowed_matmul_tmulti_plain(
             *plain_args, fuse_resplit=True, **plain_kw), 5, warmup=1),
+        # tiles, slabs, the work list and the fused bf16 [hi | lo] state
+        # (nb, k8, 2R); three bf16 products per tile.
+        **bound(nbytes(wp.tiles_t, slabs, wp.pair_chunk, wp.block_ptr)
+                + nb * k8 * 2 * R * 2, 3 * 2 * P * C * R * k8, "bf16"),
+        "library_ms": library_ms("B1", a_csr, v_p),
         "unfused_ms": cuda_ms(lambda: cw.windowed_matmul_tmulti(*args, **kw),
                               50),
     }
@@ -368,9 +457,22 @@ def solver_phase(dev, power):
               f"k={k}")
         errs.append(err)
         if k == K_CG:
+            # The band's nonzeros: band[b, i, w] is A[b*r + i, (b-1)*r + w].
+            nbk, r, _ = op.band.shape
+            bi, i, w = torch.nonzero(op.band, as_tuple=True)
+            rows, cols = bi * r + i, (bi - 1) * r + w
+            keep = (rows < m) & (cols >= 0) & (cols < m)
+            a_csr = sparse_csr(rows[keep], cols[keep],
+                               op.band[bi, i, w][keep], (m, m))
             ms = {"ms": cuda_ms(lambda: cb.band_matmul(op.band, v, m=m), 200),
                   "plain_ms": cuda_ms(lambda: cb.band_matmul_plain(
-                      op.band, v, m=m), 50)}
+                      op.band, v, m=m), 50),
+                  # band, v and the output; the band's FMAs on the CUDA
+                  # cores.
+                  **bound(nbytes(op.band, v) + m * k * 4,
+                          2 * op.band.numel() * k, "f32"),
+                  "library_ms": library_ms("B5", a_csr, v, 200)}
+            del a_csr
         del got, want, cond
     errs.append(band_spill_case(dev))
     band_bytes = op.band.numel() * op.band.element_size()
@@ -467,10 +569,8 @@ def solver_phase(dev, power):
     check(correct, "CG on the band route failed its checks")
     check(rec.correct is True, "amortized band SpMM disagrees with oracle")
     check(ms_per_iter > 0, "CG per-iteration slope did not resolve")
-    return {"name": "B5 band_matmul", "route": "cuda", "source": B5_SRC,
-            "replaces": B5_REPLACES, "launches": launches,
-            "max_abs_err": max(errs), "ms": ms["ms"],
-            "plain_ms": ms["plain_ms"]}
+    return entry("B5", "band_matmul", B5_SRC, B5_REPLACES, launches,
+                 {"max_abs_err": max(errs), **ms})
 
 
 def counted_auto(**format_kwargs):
@@ -527,16 +627,94 @@ def kernel_vs_plain(label, kernel, plain, tiles, slabs, n=50):
     within ``1e-5 * cond + 1e-6`` (``cond`` = the plain version on
     ``|tiles|``, ``|slabs|``), and both timed. Returns the kernels-line
     numbers of one kernel."""
-    got = kernel()
+    err = check_vs_plain(label, kernel(), plain, tiles, slabs)
+    return {"max_abs_err": err, "ms": cuda_ms(kernel, n),
+            "plain_ms": cuda_ms(lambda: plain(tiles, slabs), 5, warmup=1)}
+
+
+def check_vs_plain(label, got, plain, tiles, slabs) -> float:
+    """``got`` against ``plain(tiles, slabs)`` within ``1e-5 * cond +
+    1e-6``; returns the max abs error."""
     want = plain(tiles, slabs)
     cond = plain(tiles.abs(), slabs.abs())
     excess, err = b1_error(got, want, cond)
     print(f"{label} {tuple(got.shape)} max_abs_err={err} "
           f"tolerance_excess={excess}")
     check(excess <= 0, f"{label} outside tolerance of its plain version")
-    del got, want, cond
-    return {"max_abs_err": err, "ms": cuda_ms(kernel, n),
-            "plain_ms": cuda_ms(lambda: plain(tiles, slabs), 5, warmup=1)}
+    return err
+
+
+def spill_gather_phase(spill, v_p) -> dict:
+    """B7 on the U=2 spill: one ``ell_gather_bucketed`` launch and each
+    bucket through ``ell_gather_rows`` against the take route, within
+    ``1e-5 * cond + 1e-6``; the times of the one launch, its plain
+    version, the per-plane launches, the take route and the library
+    call; the bound. Returns the B7 numbers of the kernels line."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_gather as cg, ell as ell_ops,
+    )
+
+    buckets = spill.buckets
+    vals32 = [b.vals.float().contiguous() for b in buckets]
+    abs_spill = dataclasses.replace(spill, buckets=tuple(
+        dataclasses.replace(b, vals=vals.abs())
+        for b, vals in zip(buckets, vals32)))
+    stacked = cg.ell_gather_bucketed(spill, v_p)
+    cond = cg.ell_gather_bucketed_plain(abs_spill, v_p.abs())
+    errs, first = [], 0
+    for b, vals in zip(buckets, vals32):
+        rows = b.cols.shape[0]
+        take = ell_ops.spmm_ell(b, v_p, unpad=False, dma_gather=False)
+        for how, got in (("ell_gather_bucketed",
+                          stacked[first:first + rows]),
+                         ("ell_gather_rows",
+                          cg.ell_gather_rows(b.cols, vals, v_p))):
+            excess, err = b1_error(got, take, cond[first:first + rows])
+            print(f"B7 {how} bucket {tuple(b.cols.shape)} vs the take "
+                  f"route: max_abs_err={err} tolerance_excess={excess}")
+            check(excess <= 0, f"B7 ({how}) outside tolerance of the take "
+                  "route")
+            errs.append(err)
+        first += rows
+    check(stacked.shape[0] == first + 1 and not bool(stacked[-1].any()),
+          "ell_gather_bucketed's last row is not the zero row")
+
+    def per_plane():
+        return [cg.ell_gather_rows(b.cols, vals, v_p)
+                for b, vals in zip(buckets, vals32)]
+
+    def take_route():
+        return [ell_ops.spmm_ell(b, v_p, unpad=False, dma_gather=False)
+                for b in buckets]
+
+    k = v_p.shape[1]
+    cols = torch.cat([b.cols.reshape(-1) for b in buckets])
+    slots = cols.numel()
+    b_idx, w = zip(*(torch.nonzero(vals, as_tuple=True) for vals in vals32))
+    offsets = np.cumsum([0] + [b.cols.shape[0] for b in buckets])[:-1]
+    a_csr = sparse_csr(
+        torch.cat([r + int(o) for r, o in zip(b_idx, offsets)]),
+        torch.cat([b.cols[r, c] for b, r, c in zip(buckets, b_idx, w)]),
+        torch.cat([vals[r, c] for vals, r, c in zip(vals32, b_idx, w)]),
+        (first, v_p.shape[0]))
+    b7 = {"max_abs_err": max(errs),
+          "ms": cuda_ms(lambda: cg.ell_gather_bucketed(spill, v_p), 200),
+          "plain_ms": cuda_ms(lambda: cg.ell_gather_bucketed_plain(
+              spill, v_p), 50),
+          # cols and vals (int32, f32), each distinct row of v once, the
+          # stacked output and its zero row; one FMA per slot and column.
+          **bound(nbytes(cols, *vals32)
+                  + int(torch.unique(cols).numel()) * k * 4
+                  + (first + 1) * k * 4, 2 * slots * k, "f32"),
+          "library_ms": library_ms("B7", a_csr, v_p, 200),
+          "per_plane_ms": cuda_ms(per_plane, 200),
+          "take_route_ms": cuda_ms(take_route, 50)}
+    print(f"B7 all {len(buckets)} buckets: one launch {b7['ms']} ms, plain "
+          f"{b7['plain_ms']} ms, per-plane launches {b7['per_plane_ms']} ms,"
+          f" take route {b7['take_route_ms']} ms, bound {b7['bound_ms']} ms")
+    return b7
 
 
 def windowed_route(wp) -> dict:
@@ -544,11 +722,17 @@ def windowed_route(wp) -> dict:
                 P=wp.n_pairs, nb=wp.n_blocks, spill=wp.spill is not None)
 
 
+ENTRY_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+
 def entry(name, label, src, replaces, launches, numbers, **extra):
+    """One kernel of the kernels line: ``numbers`` holds its measured
+    ``ENTRY_KEYS`` (``library_ms`` None where no one call computes the
+    same function), ``extra`` whatever else the phase measured."""
     return {"name": f"{name} {label}", "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
-            "plain_ms": numbers["plain_ms"], **extra}
+            **{key: numbers[key] for key in ENTRY_KEYS}, **extra}
 
 
 def two_pair_phase(dev, csr, power):
@@ -586,6 +770,10 @@ def two_pair_phase(dev, csr, power):
     pb, pc, bp = wp.pair_block, wp.pair_chunk, wp.block_ptr
 
     # 6.2 B3, B4 (f32) and B7 against their plain versions
+    P, R = wp.n_pairs, wp.block_rows
+    flops = 2 * P * R * C * K  # one product of every tile
+    out_bytes = nb * R * K * 4
+    a_csr = windowed_csr(wp)  # hi + lo of every tile: B3's and B4's entries
     slabs = cw.chunk_slabs(v_p, C=C, split=True)
     b3 = kernel_vs_plain(
         "B3 windowed_matmul_split3",
@@ -593,6 +781,9 @@ def two_pair_phase(dev, csr, power):
                                           nb=nb),
         lambda t, s: cw.windowed_matmul_split3_plain(pb, pc, t, s, nb=nb),
         wp.tiles_split, slabs)
+    b3.update(bound(nbytes(wp.tiles_split, slabs, pc, bp) + out_bytes,
+                    3 * flops, "bf16"),
+              library_ms=library_ms("B3", a_csr, v_p))
     tiles32 = (wp.tiles_split[..., :C].float()
                + wp.tiles_split[..., C:].float())
     slabs32 = cw.chunk_slabs(v_p, C=C, split=False)
@@ -602,33 +793,23 @@ def two_pair_phase(dev, csr, power):
                                           nb=nb),
         lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
         tiles32, slabs32)
-    del slabs, tiles32, slabs32
-    buckets = wp.spill.buckets
-    vals32 = [b.vals.float().contiguous() for b in buckets]
-    errs = []
-    for b, vals in zip(buckets, vals32):
-        got = cg.ell_gather_rows(b.cols, vals, v_p)
-        take = ell_ops.spmm_ell(b, v_p, unpad=False, dma_gather=False)
-        cond = cg.ell_gather_rows_plain(b.cols, vals.abs(), v_p.abs())
-        excess, err = b1_error(got, take, cond)
-        print(f"B7 ell_gather_rows bucket {tuple(b.cols.shape)} vs the take "
-              f"route: max_abs_err={err} tolerance_excess={excess}")
-        check(excess <= 0, "B7 outside tolerance of the take route")
-        errs.append(err)
-
-    def gather_all(fn):
-        return lambda: [fn(b.cols, vals, v_p)
-                        for b, vals in zip(buckets, vals32)]
-
-    b7 = {"max_abs_err": max(errs),
-          "ms": cuda_ms(gather_all(cg.ell_gather_rows), 200),
-          "plain_ms": cuda_ms(gather_all(cg.ell_gather_rows_plain), 50)}
-    take_ms = cuda_ms(lambda: [ell_ops.spmm_ell(b, v_p, unpad=False,
-                                                dma_gather=False)
-                               for b in buckets], 50)
-    print(f"B7 all {len(buckets)} buckets {b7['ms']} ms, plain "
-          f"{b7['plain_ms']} ms, take route {take_ms} ms")
-    del vals32
+    b4_f32.update(bound(nbytes(tiles32, slabs32, pc, bp) + out_bytes, flops,
+                        "f32"),
+                  library_ms=library_ms("B4 f32", a_csr, v_p))
+    # hi + lo tiles hold ~17 bits and v integers, which two TF32 terms
+    # represent exactly: full-mantissa operands exercise the 3xTF32 split.
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tiles32 *= 1 + 2.0 ** -12 * (2 * torch.rand(
+        tiles32.shape, generator=gen, device=dev) - 1)
+    slabs32 *= 1 + 2.0 ** -12 * (2 * torch.rand(
+        slabs32.shape, generator=gen, device=dev) - 1)
+    b4_full = check_vs_plain(
+        "B4 windowed_matmul_single f32 full-mantissa",
+        cw.windowed_matmul_single(pb, pc, bp, tiles32, slabs32, nb=nb),
+        lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
+        tiles32, slabs32)
+    del slabs, tiles32, slabs32, a_csr
+    b7 = spill_gather_phase(wp.spill, v_p)
 
     # 6.3 main path, counted: one-shot (take, then B7), amortized chain
     oracle, cond = oracle_parts(csr, v_host)
@@ -642,8 +823,7 @@ def two_pair_phase(dev, csr, power):
                                  torch.float32)
     finally:
         ell_ops.SPILL_DMA_GATHER = False
-    n_buckets = len(buckets)
-    del wp, v_p, buckets
+    del wp, v_p
     strat = counted_auto(pairs_per_step=2)
     rec = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
                         warmup=2, iters=5, oracle=oracle, check=True,
@@ -659,11 +839,12 @@ def two_pair_phase(dev, csr, power):
     check(rec.execution_time == rec.execution_time,
           "two-pair chained iterate time did not resolve")
     calls = 2 + strat.body_calls
+    # One B7 launch for the whole spill of the one B7-routed call.
     check(strat.body_calls > 0 and counts["B3"] == calls
-          and counts["B2"] == calls and counts["B7"] == n_buckets
+          and counts["B2"] == calls and counts["B7"] == 1
           and counts["B1"] == counts["B4"] == counts["B6"] == 0,
           f"two-pair launch counts {counts} != {calls} B2/B3 (2 one-shot + "
-          f"{strat.body_calls} bodies) and {n_buckets} B7")
+          f"{strat.body_calls} bodies) and 1 B7")
     f32 = {"gnnz_per_s": rec.gnnz_per_s, "execution_time_s":
            rec.execution_time, "correct": rec.correct,
            "one_shot_take_correct": one_take, "one_shot_b7_correct": one_dma,
@@ -691,7 +872,19 @@ def two_pair_phase(dev, csr, power):
                                           nb=nb),
         lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
         wpb.tiles, slabs_b)
-    del slabs_b
+    P, R, C = wpb.tiles.shape
+    b4.update(bound(nbytes(wpb.tiles, slabs_b, pc, bp) + nb * R * K * 4,
+                    2 * P * R * C * K, "bf16"))
+    v_pb = wpb.encode(vb).contiguous()
+    try:
+        b4["library_ms"] = library_ms("B4 bf16", windowed_csr(wpb), v_pb)
+    except RuntimeError as e:  # a cuSPARSE without a bf16 CSR product
+        print(f"B4 bf16: torch.sparse.mm refused bf16 operands ({e}); the "
+              "library call is timed on the same entries in f32")
+        b4["library_ms"] = library_ms(
+            "B4 bf16 (f32 operands)", windowed_csr(wpb, torch.float32),
+            v_pb.float())
+    del slabs_b, v_pb
     oracle_bf, cond_bf = oracle_parts(csr_bf, cast(v_host, torch.bfloat16))
     torch.cuda.synchronize()
     cw.reset_launch_counts()
@@ -725,16 +918,21 @@ def two_pair_phase(dev, csr, power):
             "execution_time_s": rec_bf.execution_time,
             "correct": rec_bf.correct, "one_shot_correct": one_bf,
             "max_error": rec_bf.max_error, "launches": counts_bf},
-        "b7_all_buckets_ms": b7["ms"], "take_route_ms": take_ms,
+        "b7_all_buckets_ms": b7["ms"], "take_route_ms": b7["take_route_ms"],
         "power": power}))
+    # B4 f32 runs on no routed path (an f32 build carries split planes, so
+    # B3 runs): its numbers ride on the B4 entry.
+    f32_extra = {f"f32_{key}": b4_f32[key] for key in ENTRY_KEYS}
     return [
         entry("B3", "windowed_matmul_split3", SRC, REPLACES["B3"],
               b3_launches, b3),
         entry("B4", "windowed_matmul_single (bf16)", SRC, REPLACES["B4"],
-              counts_bf["B4"], b4, f32_max_abs_err=b4_f32["max_abs_err"],
-              f32_ms=b4_f32["ms"], f32_plain_ms=b4_f32["plain_ms"]),
-        entry("B7", "ell_gather_rows (all spill buckets)", B7_SRC,
-              B7_REPLACES, b7_launches, b7, take_route_ms=take_ms),
+              counts_bf["B4"], b4, **f32_extra,
+              f32_full_mantissa_max_abs_err=b4_full),
+        entry("B7", "ell_gather_bucketed (all spill buckets, one launch)",
+              B7_SRC, B7_REPLACES, b7_launches, b7,
+              per_plane_ms=b7["per_plane_ms"],
+              take_route_ms=b7["take_route_ms"]),
     ]
 
 
@@ -798,6 +996,12 @@ def phased_phase(dev, csr, power):
           f"resident {b6['ms']} ms, streamed {streamed['ms']} ms, plain "
           f"{b6['plain_ms']} ms")
     check(same, "B6 resident and streamed routes differ")
+    P, C2, R = wp.tiles_t.shape
+    b6.update(bound(nbytes(wp.tiles_t, slabs, wp.pair_chunk_ph,
+                           wp.block_ptr_ph) + wp.n_blocks * K * R * 4,
+                    3 * 2 * P * (C2 // 2) * R * K, "bf16"),
+              library_ms=library_ms("B6", windowed_csr(wp),
+                                    wp.encode(v).contiguous()))
     del slabs, args
 
     phases = wp.phases

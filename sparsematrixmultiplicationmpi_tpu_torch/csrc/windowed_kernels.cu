@@ -84,8 +84,7 @@
 //   Mode 0 (B3): bf16 hi|lo planes packed along the last axis of both
 //   operands, th.sh + tl.sh + th.sl with f32 accumulation. Mode 1 (B4,
 //   bf16): one bf16 plane, f32 accumulation. Mode 2 (B4, f32): f32 tiles
-//   and slabs in full f32 FMA (the reference's Precision.HIGHEST, no
-//   TF32).
+//   and slabs at f32 accuracy (the reference's Precision.HIGHEST).
 //
 //   The TPU grid walks two pairs per step and zeroes the output block on
 //   its first step, so the build pads each block's run to even length.
@@ -94,22 +93,51 @@
 //   registers: even runs are not needed (the wrapper still checks the
 //   reference's even pair count), an empty run writes zeros.
 //
-//   What bounds it on the H100: the tile stream (cop20k U = 2 f32, R = C
-//   = 256: 2,270 split tiles, 595 MB, >= 0.178 ms at 3.35 TB/s; bf16 R =
-//   C = 512: 1,098 tiles, 576 MB). The products run on the tensor cores
-//   (mma.sync m16n8k16, bf16 in, f32 accumulate; exact products), which
-//   suits this layout directly: the tile (R x C row-major) is the A
-//   operand (M = R, K = C), the slab (k8 x C row-major) the B operand in
-//   mma's col layout (N = k8). A tile is staged in 128-column K-slices
-//   (a 256 x 512 split tile is 512 KB, past any CTA's shared memory):
-//   128 rows x 128 columns per plane, 16-byte cp.async, rows padded by 16
-//   bytes so ldmatrix (tile) and the 32-bit slab fragment loads are free
-//   of bank conflicts; two CTAs share an SM, so one computes while the
-//   other loads. Each of the 8 warps owns 16 tile rows (one m16 tile) and
-//   all <= 32 columns of k. R = 8 fills half an m16 tile: the other rows
-//   are zero in shared memory and their outputs are dropped. Mode 2 runs
-//   on CUDA cores: 32-column f32 K-slices transposed into shared memory,
-//   each thread a 4 x 4 block of outputs from two float4 loads per step.
+//   What bounds modes 0 and 1 on the H100: the tile stream (cop20k U = 2
+//   f32, R = C = 256: 2,270 split tiles, 595 MB, >= 0.178 ms at 3.35 TB/s;
+//   bf16 R = C = 512: 1,098 tiles, 576 MB). The products run on the
+//   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate; exact
+//   products), which suits this layout directly: the tile (R x C
+//   row-major) is the A operand (M = R, K = C), the slab (k8 x C
+//   row-major) the B operand in mma's col layout (N = k8). A tile is
+//   staged in 128-column K-slices (a 256 x 512 split tile is 512 KB, past
+//   any CTA's shared memory): 128 rows x 128 columns per plane, 16-byte
+//   cp.async, rows padded by 16 bytes so ldmatrix (tile) and the 32-bit
+//   slab fragment loads are free of bank conflicts; two CTAs share an
+//   SM, so one computes while the other loads. Each of the 8 warps owns
+//   16 tile rows (one m16 tile) and all <= 32 columns of k. R = 8 fills
+//   half an m16 tile: the other rows are zero in shared memory and their
+//   outputs are dropped.
+//
+//   What bounds mode 2: the f32 tile stream, 626 MB per cop20k U = 2
+//   multiply (2,270 x 256 x 256 x 4 B of tiles, plus slabs and output):
+//   >= 0.187 ms at 3.35 TB/s. Its 9.5 GFLOP on the CUDA cores' f32 FMAs
+//   (67 TFLOP/s) alone would take >= 0.142 ms, and a CUDA-core kernel
+//   also pays the shared-memory traffic of its operand loads, so the
+//   products go to the tensor cores in 3xTF32: each operand is split,
+//   big = rna_tf32(x), small = rna_tf32(x - big), and mma.sync m16n8k8
+//   tf32 (f32 accumulate) issues big.big + big.small + small.big:
+//   products to ~2^-21 relative, 28.6 GFLOP, >= 0.058 ms at the TF32
+//   peak, so the stream stays the bound. (One TF32 product, ~2^-11
+//   relative, would not hold the f32 tier.) The layout is mode 0's
+//   without any transposition: the f32 tile is mma's row-major A, the
+//   f32 slab its col-layout B. 32-column K-slices (128 x 32 f32 of tile,
+//   32 x 32 of slab) go through a three-stage ring with 16-byte
+//   cp.async, so two slices load while one computes, and two CTAs share
+//   an SM. Splitting costs instructions (two cvt and a subtract per
+//   value), and split at every fragment load they, not the bytes, set
+//   the time: all 8 warps would split the same slab values. So each
+//   thread splits the slab values it copied as they land, into a big and
+//   a small plane of the stage, and the warps load both; only the tile's
+//   values, which one warp reads, are split at fragment load. In each
+//   8-column step, staged columns 2t and 2t + 1 serve as mma's k = t and
+//   t + 4 for both operands, so a fragment pair is one 64-bit load; rows
+//   are padded by 8 floats, so those loads hit banks 8g + 2t, free of
+//   conflicts. big.big goes to two accumulators, alternating by k-step,
+//   and the two cross terms (2^-11 smaller) to a third, issued apart: the
+//   sums that carry the result take a sixth of the steps of one shared
+//   accumulator (the tensor cores' f32 accumulation does not round to
+//   nearest, so its error grows with the number of steps).
 // ---------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -555,79 +583,226 @@ natural_kernel(const int* __restrict__ block_ptr,
     }
 }
 
-constexpr int kFRS = 128;  // B4 f32: tile rows per CTA
-constexpr int kFCB = 32;   // contraction columns staged per step
-constexpr int kFKS = 32;   // k8 columns per CTA
+// ---- B4 f32: natural-layout contraction in 3xTF32 ---------------------
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kXRS = 128;  // tile rows per CTA (8 warps x one m16 tile)
+constexpr int kXKS = 32;   // k8 columns per CTA (four n8 tiles)
+constexpr int kXCB = 32;   // contraction columns (of C) per stage
+// Staged row stride (f32): 64-bit fragment loads at row g, column 2t hit
+// banks 8g + 2t, free of conflicts.
+constexpr int kXLd = kXCB + 8;
+// Stage: the tile slice, the slab slice's big terms (in place of the
+// landed f32), its small terms.
+constexpr int kXStage = (kXRS + 2 * kXKS) * kXLd;  // floats per stage
+constexpr int kXStages = 3;  // two stages in flight while one computes
+constexpr int kXSmemBytes =
+    kXStages * kXStage * static_cast<int>(sizeof(float));  // 92,160
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = big + small + O(2^-22 |x|), both tf32 (round to nearest, ties away):
+// big . big + big . small + small . big is an f32-accurate product.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(small)
+      : "f"(x - __uint_as_float(big)));
+}
+
+// Not volatile: the scheduler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 natural_f32_kernel(const int* __restrict__ block_ptr,
                    const int* __restrict__ pair_chunk,
                    const float* __restrict__ tiles,
                    const float* __restrict__ slabs, float* __restrict__ out,
                    int C, int R, int k8) {
-  // Transposed K-slices: s_tile[c][r], s_slab[c][kk]; rows padded by 16
-  // bytes so every float4 stays aligned.
-  __shared__ __align__(16) float s_tile[kFCB][kFRS + 4];
-  __shared__ __align__(16) float s_slab[kFCB][kFKS + 4];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Stage s: s_tile[r][c] (kXRS rows, f32), then s_big[kk][c] and
+  // s_small[kk][c] (kXKS rows each, tf32 bits), stride kXLd.
+  float* stages = reinterpret_cast<float*>(smem);
+
   const int b = blockIdx.x;
-  const int r_base = blockIdx.y * kFRS;
-  const int k_base = blockIdx.z * kFKS;
-  const int rs = min(kFRS, R - r_base);
-  const int ks = min(kFKS, k8 - k_base);
+  const int r_base = blockIdx.y * kXRS;
+  const int k_base = blockIdx.z * kXKS;
+  const int rs = min(kXRS, R - r_base);   // multiple of 8
+  const int ks = min(kXKS, k8 - k_base);  // multiple of 8
+  const int n_tiles = ks / 8;
   const int tid = threadIdx.x;
-  const int r0 = (tid >> 3) * 4;  // this thread's 4 tile rows
-  const int q0 = (tid & 7) * 4;   // and 4 k columns
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (tid >> 5) * 16;         // this warp's first tile row
+  const bool active = m0 < rs;
 
-  // Columns past rs / ks are never loaded and stay zero.
-  for (int i = tid; i < kFCB * (kFRS + 4); i += kThreads) {
-    (&s_tile[0][0])[i] = 0.f;
+  // Tile rows [rs, kXRS) and slab rows [ks, kXKS) are never loaded and
+  // stay zero in every stage (R = 8 fills half an m16 tile).
+  if (rs < kXRS || ks < kXKS) {
+    for (int i = tid; i < kXStages * kXStage; i += kThreads) stages[i] = 0.f;
   }
-  for (int i = tid; i < kFCB * (kFKS + 4); i += kThreads) {
-    (&s_slab[0][0])[i] = 0.f;
-  }
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  const int p_end = block_ptr[b + 1];
-  for (int p = block_ptr[b]; p < p_end; ++p) {
+  // Two accumulators for big . big, alternating by k-step, and one for
+  // the two small cross terms: each f32 sum takes half as many steps.
+  float acc_big[2][4][4], acc_small[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc_big[0][nt][j] = acc_big[1][nt][j] = acc_small[nt][j] = 0.f;
+    }
+
+  // The CTA's work is a run of steps: step s covers pair p_begin +
+  // s / spt, contraction columns [(s % spt) * kXCB, +kXCB).
+  const int p_begin = block_ptr[b];
+  const int spt = C / kXCB;
+  const int n_steps = (block_ptr[b + 1] - p_begin) * spt;
+  constexpr int kVec = kXCB / 4;  // 16-byte vectors per staged row
+  auto load = [&](int s) {
+    const int p = p_begin + s / spt;
+    const int c0 = (s % spt) * kXCB;
+    float* s_tile = stages + (s % kXStages) * kXStage;
+    float* s_big = s_tile + kXRS * kXLd;
     const float* tile = tiles + static_cast<size_t>(p) * R * C;
     const float* slab = slabs + static_cast<size_t>(pair_chunk[p]) * k8 * C;
-    for (int c0 = 0; c0 < C; c0 += kFCB) {
-      __syncthreads();
-      for (int i = tid; i < rs * kFCB; i += kThreads) {
-        const int r = i / kFCB, c = i % kFCB;
-        s_tile[c][r] = tile[static_cast<size_t>(r_base + r) * C + c0 + c];
-      }
-      for (int i = tid; i < ks * kFCB; i += kThreads) {
-        const int kk = i / kFCB, c = i % kFCB;
-        s_slab[c][kk] = slab[static_cast<size_t>(k_base + kk) * C + c0 + c];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < kFCB; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(&s_tile[c][r0]);
-        const float4 s = *reinterpret_cast<const float4*>(&s_slab[c][q0]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float sv[4] = {s.x, s.y, s.z, s.w};
+    for (int i = tid; i < rs * kVec; i += kThreads) {
+      const int r = i / kVec, v = i % kVec;
+      cp_async16(s_tile + r * kXLd + v * 4,
+                 tile + static_cast<size_t>(r_base + r) * C + c0 + v * 4);
+    }
+    for (int i = tid; i < ks * kVec; i += kThreads) {
+      const int kk = i / kVec, v = i % kVec;
+      cp_async16(s_big + kk * kXLd + v * 4,
+                 slab + static_cast<size_t>(k_base + kk) * C + c0 + v * 4);
+    }
+  };
+  // Every warp reads the whole slab slice: split it once, as it lands.
+  // Each thread splits the vectors it copied itself (the same loop as
+  // load's), which are visible to it after its own wait.
+  auto split_slab = [&](int s) {
+    float* s_big = stages + (s % kXStages) * kXStage + kXRS * kXLd;
+    float* s_small = s_big + kXKS * kXLd;
+    for (int i = tid; i < ks * kVec; i += kThreads) {
+      const int at = (i / kVec) * kXLd + (i % kVec) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(s_big + at);
+      uint4 hi, lo;
+      split_tf32(x.x, hi.x, lo.x);
+      split_tf32(x.y, hi.y, lo.y);
+      split_tf32(x.z, hi.z, lo.z);
+      split_tf32(x.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(s_big + at) = hi;
+      *reinterpret_cast<uint4*>(s_small + at) = lo;
+    }
+  };
+
+  __syncthreads();  // the zero fill is done before any copy lands
+  // Steps 0 .. kXStages - 2 in flight first; one (maybe empty) group each.
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < kXStages - 1; ++s) {
+    if (s < n_steps) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kXStages - 2>();  // step s has landed, for this thread
+    split_slab(s);
+    // ... for every thread, split; and all are done with step s - 1, so
+    // its stage takes step s + kXStages - 1 while this one computes.
+    __syncthreads();
+    if (s + kXStages - 1 < n_steps) load(s + kXStages - 1);
+    cp_async_commit();
+    if (active) {
+      const float* s_tile = stages + (s % kXStages) * kXStage;
+      const unsigned* s_big =
+          reinterpret_cast<const unsigned*>(s_tile + kXRS * kXLd);
+      const unsigned* s_small = s_big + kXKS * kXLd;
+      // In each 8-column step, staged columns 2t and 2t + 1 serve as mma's
+      // k = t and t + 4 in both operands (the same permutation of the
+      // sum's terms), so each fragment pair is one 64-bit load.
+      const float* a_row = s_tile + (m0 + g) * kXLd + 2 * t;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], sv[j], acc[i][j]);
+      for (int k0 = 0; k0 < kXCB; k0 += 8) {
+        // A (m16 x k8, row): (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+        const float2 a_lo = *reinterpret_cast<const float2*>(a_row + k0);
+        const float2 a_hi =
+            *reinterpret_cast<const float2*>(a_row + 8 * kXLd + k0);
+        unsigned ab[4], as[4];
+        split_tf32(a_lo.x, ab[0], as[0]);
+        split_tf32(a_hi.x, ab[1], as[1]);
+        split_tf32(a_lo.y, ab[2], as[2]);
+        split_tf32(a_hi.y, ab[3], as[3]);
+        // B (k8 x n8, col) = slab rows: (k = t, n = g), (t + 4, g).
+        unsigned bb[4][2], bs[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int at = (nt * 8 + g) * kXLd + k0 + 2 * t;
+          const uint2 big2 = *reinterpret_cast<const uint2*>(s_big + at);
+          const uint2 small2 = *reinterpret_cast<const uint2*>(s_small + at);
+          bb[nt][0] = big2.x;
+          bb[nt][1] = big2.y;
+          bs[nt][0] = small2.x;
+          bs[nt][1] = small2.y;
+        }
+        float (&big)[4][4] = acc_big[(k0 / 8) & 1];
+        // The two products into acc_small are issued apart.
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (nt < n_tiles) mma_tf32(acc_small[nt], as, bb[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (nt < n_tiles) mma_tf32(big[nt], ab, bb[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (nt < n_tiles) mma_tf32(acc_small[nt], ab, bs[nt]);
       }
     }
   }
-  if (q0 >= ks) return;  // ks is a multiple of 8: q0 < ks covers q0 + 3
+  if (!active) return;
+  // Fragment (nt, j): tile row m0 + g + 8*(j/2), k column nt*8 + 2t + j%2.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (r0 + i >= rs) continue;
-    float* o = out + (static_cast<size_t>(b) * R + r_base + r0 + i) * k8 +
-               k_base + q0;
-    *reinterpret_cast<float4*>(o) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      const int kk = nt * 8 + 2 * t;
+      if (r >= rs || kk >= ks) continue;
+      float x[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int f = 2 * h + j;
+        x[j] = (acc_big[0][nt][f] + acc_big[1][nt][f]) + acc_small[nt][f];
+      }
+      float* o = out + (static_cast<size_t>(b) * R + r_base + r) * k8 +
+                 k_base + kk;
+      *reinterpret_cast<float2*>(o) = make_float2(x[0], x[1]);
+    }
+}
+
+cudaError_t launch_natural_f32(const int* block_ptr, const int* pair_chunk,
+                               const float* tiles, const float* slabs,
+                               float* out, int nb, int C, int R, int k8,
+                               cudaStream_t stream) {
+  static std::atomic<uint64_t> configured{0};
+  cudaError_t err =
+      set_smem_once(natural_f32_kernel, kXSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nb, (R + kXRS - 1) / kXRS, (k8 + kXKS - 1) / kXKS);
+  natural_f32_kernel<<<grid, kThreads, kXSmemBytes, stream>>>(
+      block_ptr, pair_chunk, tiles, slabs, out, C, R, k8);
+  return cudaGetLastError();
 }
 
 template <bool SPLIT>
@@ -782,11 +957,9 @@ int natural_launch(const void* block_ptr, const void* pair_chunk,
   } else if (mode == 1) {
     err = launch_natural<false>(bp, pc, tiles, slabs, o, nb, C, R, k8, st);
   } else if (mode == 2) {
-    const dim3 grid(nb, (R + kFRS - 1) / kFRS, (k8 + kFKS - 1) / kFKS);
-    natural_f32_kernel<<<grid, kThreads, 0, st>>>(
-        bp, pc, static_cast<const float*>(tiles),
-        static_cast<const float*>(slabs), o, C, R, k8);
-    err = cudaGetLastError();
+    err = launch_natural_f32(bp, pc, static_cast<const float*>(tiles),
+                             static_cast<const float*>(slabs), o, nb, C, R,
+                             k8, st);
   } else {
     err = cudaErrorInvalidValue;
   }

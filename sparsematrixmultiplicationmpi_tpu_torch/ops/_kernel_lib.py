@@ -138,6 +138,9 @@ def load_library() -> ctypes.CDLL:
         lib.ell_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                           ptr]
         lib.ell_gather_launch.restype = i32
+        lib.ell_gather_bucketed_launch.argtypes = [ptr, i32, ptr, ptr, i32,
+                                                   ptr]
+        lib.ell_gather_bucketed_launch.restype = i32
         lib.error_string.argtypes = [i32]
         lib.error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -3,9 +3,11 @@
 
 ``out = sum_w vals[:, w, None] * v[cols[:, w], :]`` — one row gather and a
 dense reduction over the width axis (the take route). The explicit-gather
-route through kernel B7 (``_spmm_ell_dma``, ``ops/cuda_gather.py``) is
-the reference's A/B switch: off by default (``SPILL_DMA_GATHER``), or
-forced per call with ``dma_gather=True``.
+route through kernel B7 (``ops/cuda_gather.py``) is the reference's A/B
+switch: off by default (``SPILL_DMA_GATHER``), or forced per call with
+``dma_gather=True``. On that route a bucketed operand takes one B7
+launch for all its buckets (``stack_bucketed``) where the reference
+runs one per bucket and concatenates; the values are the same.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from ..formats.matrix import ELL, BucketedELL
 
-__all__ = ["spmm_ell", "spmm_bucketed", "take_rows", "SPILL_DMA_GATHER"]
+__all__ = ["spmm_ell", "spmm_bucketed", "stack_bucketed", "take_rows",
+           "SPILL_DMA_GATHER"]
 
 #: Route ELL planes through the explicit-gather kernel B7 instead of the
 #: take route. The reference keeps it False after measuring its DMA kernel
@@ -59,11 +62,25 @@ def spmm_ell(ell: ELL, v: torch.Tensor, *, unpad: bool = True,
     return out
 
 
+def stack_bucketed(bell: BucketedELL, v: torch.Tensor) -> torch.Tensor:
+    """Every bucket's padded SpMM output, stacked in bucket order, and one
+    zero row for rows absent from every bucket: ``(sum m_padded + 1,
+    k)`` in ``v``'s dtype, the table ``inv_row_perm`` indexes. With
+    ``SPILL_DMA_GATHER`` (and ``k <= 128``) one B7 launch writes it
+    (``ell_gather_bucketed``); otherwise each bucket takes ``spmm_ell``
+    and the parts are concatenated, as the reference does."""
+    k = v.shape[1]
+    if SPILL_DMA_GATHER and k <= 128:
+        from .cuda_gather import ell_gather_bucketed
+
+        return ell_gather_bucketed(
+            bell, v.to(torch.float32).contiguous()).to(v.dtype)
+    parts = [spmm_ell(b, v, unpad=False) for b in bell.buckets]
+    parts.append(v.new_zeros((1, k), dtype=parts[0].dtype))
+    return torch.cat(parts, dim=0)
+
+
 def spmm_bucketed(bell: BucketedELL, v: torch.Tensor) -> torch.Tensor:
     """SpMM over bucketed ELL: per-bucket reduce, then one gather back to
     original row order through ``inv_row_perm``."""
-    parts = [spmm_ell(b, v, unpad=False) for b in bell.buckets]
-    # One zero row for rows absent from every bucket.
-    parts.append(v.new_zeros((1, v.shape[1]), dtype=parts[0].dtype))
-    stacked = torch.cat(parts, dim=0)
-    return stacked.index_select(0, bell.inv_row_perm)
+    return stack_bucketed(bell, v).index_select(0, bell.inv_row_perm)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.windowed import KPAD_MIN_K, WindowedPairs
-from .ell import spmm_ell
+from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
            "windowed_t_chain"]
@@ -45,9 +45,7 @@ def _finish(wp: WindowedPairs, out_blocks: torch.Tensor,
         # zero row; the take extends over the pad tail (pointing at the
         # zero row) so the result lands directly in padded space.
         bell = wp.spill
-        parts = [spmm_ell(b, v_p, unpad=False) for b in bell.buckets]
-        parts.append(parts[0].new_zeros((1, k)))
-        stacked = torch.cat(parts, dim=0)
+        stacked = stack_bucketed(bell, v_p)
         idx = bell.inv_row_perm
         tail = out.shape[0] - m
         if tail > 0:

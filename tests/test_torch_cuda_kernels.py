@@ -20,7 +20,9 @@ from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
 from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import (
     BandedBlocks,
 )
-from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import COO
+from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+    COO, ELL, BucketedELL,
+)
 from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
     WindowedPairs, _phase_block_ptr, _phase_fields,
 )
@@ -317,16 +319,31 @@ def _natural_case(host, mode, v_p, dev):
         slabs = cw.chunk_slabs(v_p, C=C, split=True)
         return (cw.windowed_matmul_split3, cw.windowed_matmul_split3_plain,
                 tiles, slabs)
-    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    dtype = torch.bfloat16 if mode == "bf16" else torch.float32
     tiles = torch.from_numpy(host.tiles).to(dev).to(dtype)
     slabs = cw.chunk_slabs(v_p.to(dtype).contiguous(), C=C, split=False)
+    if mode == "f32-full":
+        tiles, slabs = _full_mantissa(tiles, 0), _full_mantissa(slabs, 1)
     return (cw.windowed_matmul_single, cw.windowed_matmul_single_plain,
             tiles, slabs)
 
 
+def _full_mantissa(x, seed):
+    """``x * (1 + 2**-12 u)``, u uniform in [-1, 1): all 24 bits of the
+    mantissa in use, so B4 f32's 3xTF32 split is exercised (the tiles of
+    a build hold ~17 bits and the fat vector integers, which two TF32
+    terms represent exactly)."""
+    u = np.random.default_rng(seed).uniform(-1, 1, tuple(x.shape))
+    return x * torch.from_numpy((1 + 2.0 ** -12 * u).astype(np.float32)).to(
+        x.device)
+
+
+#: B4 f32 runs 3xTF32 on the tensor cores: each product to ~2**-21
+#: relative, f32 sums, so it holds the same 1e-5 * cond + 1e-6 as the
+#: exact-product kernels (the reference's Precision.HIGHEST f32 tier).
 @pytest.mark.parametrize("k", [8, 32])
 @pytest.mark.parametrize("R,C", NATURAL_SHAPES)
-@pytest.mark.parametrize("mode", ["split3", "bf16", "f32"])
+@pytest.mark.parametrize("mode", ["split3", "bf16", "f32", "f32-full"])
 def test_natural_kernels_match_plain(cuda, mode, R, C, k):
     csr = fem3d_csr(1024, 16000, seed=8).astype(np.float32)
     host = _u2(csr, R, C)
@@ -514,17 +531,65 @@ def test_ell_gather_matches_plain(cuda, w, k):
         cg.ell_gather_rows(cols, vals, torch.zeros((n, 129), device=cuda))
 
 
+def _ell(rng, rows, w, n):
+    cols = rng.integers(0, n, (rows, w)).astype(np.int32)
+    vals = rng.normal(size=(rows, w)).astype(np.float32)
+    return ELL(cols=cols, vals=vals, shape=(rows, n))
+
+
+#: B7 sums each row's slots in lane groups, then adds the groups' partial
+#: sums by shuffles: another order than the plain version's, so the
+#: results agree within 1e-5 * cond + 1e-6, not bitwise.
+@pytest.mark.parametrize("k", [1, 8, 32, 100, 128])
+@pytest.mark.parametrize("w", [1, 5, 24, 40])
+def test_ell_gather_bucketed_matches_plain(cuda, w, k):
+    """One B7 launch over a bucket of width ``w``, an empty bucket, a
+    one-row bucket and a narrow one, then the zero row; restored through
+    a row map with rows that are in no bucket."""
+    rng = np.random.default_rng(w * 1000 + k)
+    n = 3000
+    buckets = (_ell(rng, 1000, w, n), _ell(rng, 0, 3, n), _ell(rng, 1, 7, n),
+               _ell(rng, 64, 2, n))
+    stacked_rows = sum(b.m_padded for b in buckets)
+    m = stacked_rows + 50
+    inv = rng.permutation(m)
+    inv[inv >= stacked_rows] = stacked_rows  # 50 rows in no bucket
+    bell = BucketedELL(buckets=buckets, row_perm=np.zeros(0, np.int32),
+                       inv_row_perm=inv.astype(np.int32), shape=(m, n)).to(
+                           cuda)
+    v = torch.from_numpy(rng.normal(scale=10.0, size=(n, k)).astype(
+        np.float32)).to(cuda)
+    cg.reset_launch_counts()
+    got = cg.ell_gather_bucketed(bell, v)
+    assert cg.launch_counts() == {"B7": 1}
+    want = cg.ell_gather_bucketed_plain(bell, v)
+    abs_bell = dataclasses.replace(bell, buckets=tuple(
+        dataclasses.replace(b, vals=b.vals.abs()) for b in bell.buckets))
+    cond = cg.ell_gather_bucketed_plain(abs_bell, v.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (stacked_rows + 1, k)
+    assert torch.count_nonzero(got[-1]) == 0
+    _assert_b1_close(got, want, cond)
+    idx = bell.inv_row_perm
+    _assert_b1_close(got.index_select(0, idx), want.index_select(0, idx),
+                     cond.index_select(0, idx))
+    with pytest.raises(ValueError, match="at most 16 buckets"):
+        cg.ell_gather_bucketed(
+            dataclasses.replace(bell, buckets=bell.buckets * 5), v)
+
+
 def test_spill_through_the_gather_kernel(cuda, monkeypatch):
     csr = powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
     wp = WindowedPairs.from_csr(csr, block_rows=128, chunk_cols=128,
                                 pairs_per_step=2, beat_gather_margin=np.inf)
     wp = wp.to(cuda)
+    assert len(wp.spill.buckets) > 1
     v = generate_fat_vector(2000, 32, seed=3).astype(np.float32)
     vt = torch.from_numpy(v).to(cuda)
     take = spmm_any(wp, vt)
     monkeypatch.setattr(ell_ops, "SPILL_DMA_GATHER", True)
     cg.reset_launch_counts()
     dma = spmm_any(wp, vt)
-    assert cg.launch_counts() == {"B7": len(wp.spill.buckets)}
+    assert cg.launch_counts() == {"B7": 1}  # one launch per spill
     assert _rel_to_oracle(dma, csr, v) < 5e-3
     assert _rel_to_oracle(take, csr, v) < 5e-3

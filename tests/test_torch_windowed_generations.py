@@ -12,6 +12,9 @@ gather B7, and the bf16 path through the port's entry points.
 * Whole SpMMs and chains are held to the dtype tier of
   ``utils/compare.py`` (5e-3 relative to the largest output for f32,
   5e-2 for bf16) against the JAX package and the host f64 oracle.
+* B7's one launch per spill (``ell_gather_bucketed``) is held against the
+  JAX package's per-bucket DMA route, and B4 f32's 3xTF32 products,
+  emulated, against the f64 product, where there is no card.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import sparsematrixmultiplicationmpi_tpu.formats.matrix as JM
 import sparsematrixmultiplicationmpi_tpu.formats.windowed as JW
 import sparsematrixmultiplicationmpi_tpu.io.generate as JG
 import sparsematrixmultiplicationmpi_tpu.ops.auto as JA
@@ -39,6 +43,7 @@ from sparsematrixmultiplicationmpi_tpu.ops.pallas_gather import (
 )
 from sparsematrixmultiplicationmpi_tpu.parallel import Auto as JAuto
 from sparsematrixmultiplicationmpi_tpu.parallel import make_mesh
+import sparsematrixmultiplicationmpi_tpu_torch.formats.matrix as TM
 import sparsematrixmultiplicationmpi_tpu_torch.formats.windowed as TW
 import sparsematrixmultiplicationmpi_tpu_torch.io.generate as TG
 import sparsematrixmultiplicationmpi_tpu_torch.ops.auto as TA
@@ -420,6 +425,189 @@ def test_spmm_ell_dma_route_vs_jax(dtype, monkeypatch):
     assert cg.launch_counts() == {"B7": 0}  # CPU tensors: plain version
     with pytest.raises(ValueError, match="k <= 128"):
         TE.spmm_ell(tell, torch.zeros((200, 129)), dma_gather=True)
+
+
+#: The families of ``tests/test_torch_foundation.py``'s bucketed builders,
+#: smaller: the JAX DMA kernel unrolls its row copies, so interpret mode
+#: takes seconds per bucket, more for wide ones. The powerlaw matrix has
+#: empty rows (in no bucket).
+FAMILIES = {
+    "fem3d": lambda g: g.fem3d_csr(64, 500, seed=12),
+    "powerlaw": lambda g: g.powerlaw_csr(20, 20, 60, seed=13),
+    "random": lambda g: g.random_csr(120, 100, 800, seed=14),
+    "banded": lambda g: g.banded_csr(150, 20, 7, seed=15),
+}
+
+
+def _abs_bucketed(bell):
+    return dataclasses.replace(bell, buckets=tuple(
+        dataclasses.replace(b, vals=b.vals.abs()) for b in bell.buckets))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_ell_gather_bucketed_plain_vs_jax_dma_route(family, monkeypatch):
+    """The one-launch B7 layout (every bucket stacked, then the zero row),
+    restored through ``inv_row_perm``, against the JAX package's
+    ``spmm_bucketed`` on its DMA-gather route (the Pallas kernel per
+    bucket, interpret mode). The kernel sums slots in another order than
+    the reference: ``1e-5 * cond + 1e-6``."""
+    jc, tc = _csrs(FAMILIES[family], np.float32)
+    jb, tb = JM.BucketedELL.from_csr(jc), TM.BucketedELL.from_csr(tc)
+    tb = tb.to("cpu")
+    n = tc.shape[1]
+    jv, tv = _fat(n, 24, seed=13)
+    monkeypatch.setattr(JE, "SPILL_DMA_GATHER", True)
+    want = np.asarray(JE.spmm_bucketed(jb, jnp.asarray(jv)))
+    stacked = cg.ell_gather_bucketed(tb, tv)
+    assert stacked.shape == (sum(b.m_padded for b in tb.buckets) + 1, 24)
+    assert not stacked[-1].any()
+    got = stacked.index_select(0, tb.inv_row_perm)
+    cond = cg.ell_gather_bucketed_plain(_abs_bucketed(tb), tv.abs())
+    cond = cond.index_select(0, tb.inv_row_perm)
+    _close(got.numpy(), want, cond.numpy())
+    # The route switch: the same stacked table on the take route.
+    monkeypatch.setattr(TE, "SPILL_DMA_GATHER", True)
+    _close(TE.spmm_bucketed(tb, tv).numpy(), want, cond.numpy())
+    monkeypatch.setattr(TE, "SPILL_DMA_GATHER", False)
+    _close(TE.spmm_bucketed(tb, tv).numpy(), want, cond.numpy())
+
+
+def test_ell_gather_bucketed_contract():
+    tc = TG.random_csr(64, 50, 400, seed=15).astype(np.float32)
+    tb = TM.BucketedELL.from_csr(tc).to("cpu")
+    v = torch.ones((50, 8))
+    many = dataclasses.replace(tb, buckets=tb.buckets[:1] * 17)
+    with pytest.raises(ValueError, match="at most 16 buckets"):
+        cg.ell_gather_bucketed(many, v)
+    with pytest.raises(ValueError, match="k <= 128"):
+        cg.ell_gather_bucketed(tb, torch.ones((50, 129)))
+    cg.reset_launch_counts()
+    cg.ell_gather_bucketed(dataclasses.replace(tb, buckets=tb.buckets[:1]
+                                               * 16), v)
+    assert cg.launch_counts() == {"B7": 0}  # CPU tensors: plain version
+
+
+def test_ell_gather_bucketed_segment_table():
+    """The one-launch kernel's host table: one row per bucket (pointers,
+    W, rows, first stacked row) and the zero row, built once per operand
+    and dropped with it."""
+    tc = TG.fem3d_csr(64, 500, seed=12).astype(np.float32)
+    tb = TM.BucketedELL.from_csr(tc).to("cpu")
+    cpu = torch.device("cpu")
+    table, rows = cg._segment_table(tb, cpu)
+    assert rows == sum(b.m_padded for b in tb.buckets)
+    first = np.cumsum([0] + [b.m_padded for b in tb.buckets])
+    for row, b, f in zip(table, tb.buckets, first):
+        assert tuple(row) == (b.cols.data_ptr(), b.vals.data_ptr(), b.width,
+                              b.m_padded, f)
+    assert tuple(table[-1]) == (0, 0, 0, 1, rows)
+    assert cg._segment_table(tb, cpu)[0] is table
+    with pytest.raises(ValueError, match="buckets are on cpu"):
+        cg._segment_table(tb, torch.device("cuda", 0))
+    key = id(tb)
+    del tb
+    assert key not in cg._segment_tables
+
+
+def test_finish_on_the_b7_route_vs_jax(monkeypatch):
+    """``_finish`` restores a U=2 spill through one B7 launch's stacked
+    table (plain version here) where the JAX package runs its DMA kernel
+    per bucket and concatenates: the same padded-space result."""
+    k = 16
+    # Five spill buckets of W <= 20 (the JAX DMA kernel's interpret mode
+    # does not get through a bucket hundreds of slots wide).
+    kw = dict(block_rows=32, chunk_cols=128, pairs_per_step=2,
+              beat_gather_margin=np.inf)
+    jc, tc = _csrs(lambda g: g.random_csr(300, 300, 3000, seed=7),
+                   np.float32)
+    jw = JW.WindowedPairs.from_csr(jc, **kw)
+    tw = TW.WindowedPairs.from_csr(tc, **kw).to("cpu")
+    assert tw.spill is not None and len(tw.spill.buckets) > 1
+    jv, tv = _fat(tc.shape[1], k, seed=14)
+    jv_p, tv_p = jw.encode(jnp.asarray(jv)), tw.encode(tv)
+    blocks = np.random.default_rng(k).normal(
+        size=(tw.n_blocks * tw.block_rows, k)).astype(np.float32)
+    monkeypatch.setattr(JE, "SPILL_DMA_GATHER", True)
+    want = np.asarray(JOW._finish(jw, jnp.asarray(blocks), jv_p))
+    monkeypatch.setattr(TE, "SPILL_DMA_GATHER", True)
+    got = TOW._finish(tw, torch.from_numpy(blocks), tv_p)
+    assert got.shape == want.shape == (tw.pad_rows, k)
+    abs_w = dataclasses.replace(tw, spill=_abs_bucketed(tw.spill))
+    cond = TOW._finish(abs_w, torch.from_numpy(np.abs(blocks)), tv_p.abs())
+    _close(got.numpy(), want, cond.numpy())
+
+
+# ---- B4 f32's 3xTF32 products, emulated ----------------------------------
+
+#: Every (R, C) of the card tests' ``NATURAL_SHAPES``.
+NATURAL_SHAPES = [(8, 128), (64, 128), (64, 256), (256, 128), (256, 256),
+                  (256, 512), (512, 512)]
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: ``cvt.rna.tf32.f32``. Adding half an ulp to the magnitude bits
+    of a sign-magnitude float and truncating rounds half away."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(tiles, slabs, pair_block, pair_chunk, nb, *, passes):
+    """B4 f32's contraction with TF32 operands: ``passes=3`` is the
+    kernel's 3xTF32 (big.big + big.small + small.big, big = rna(x),
+    small = rna(x - big)), ``passes=1`` one TF32 product. TF32 x TF32
+    products are exact in f32; the sums are f32."""
+    sl = slabs.index_select(0, pair_chunk)
+    tb, sb = _rna_tf32(tiles), _rna_tf32(sl)
+    prods = torch.bmm(tb, sb.transpose(1, 2))
+    if passes == 3:
+        ts, ss = _rna_tf32(tiles - tb), _rna_tf32(sl - sb)
+        prods = (prods + torch.bmm(tb, ss.transpose(1, 2))
+                 + torch.bmm(ts, sb.transpose(1, 2)))
+    out = prods.new_zeros((nb,) + tuple(prods.shape[1:]))
+    return out.index_add_(0, pair_block, prods)
+
+
+def test_rna_tf32_rounds_to_ten_bits_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 3.0, 0.0], dtype=torch.float32)
+    want = [one + ulp, -(one + ulp), one, one + 2 * ulp, 3.0, 0.0]
+    assert _rna_tf32(x).tolist() == want
+
+
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("R,C", NATURAL_SHAPES)
+def test_3xtf32_products_hold_the_f32_tier(R, C, k):
+    """The precision argument of B4 f32 on the tensor cores, where there
+    is no card: on full-mantissa tiles and slabs the 3xTF32 contraction
+    stays within ``1e-5 * cond + 1e-6`` of the f64 product, and a single
+    TF32 product does not."""
+    csr = TG.fem3d_csr(1024, 16000, seed=8).astype(np.float32)
+    wp = TW.WindowedPairs.from_csr(
+        csr, block_rows=R, chunk_cols=C, reorder=None, pairs_per_step=2,
+        beat_gather_margin=1e9, max_inflation=1e9,
+        allow_spill=False).to("cpu")
+    rng = np.random.default_rng(R + C + k)
+    full = lambda x: x * torch.from_numpy(  # noqa: E731
+        (1 + 2.0 ** -12 * rng.uniform(-1, 1, x.shape)).astype(np.float32))
+    tiles = full(wp.tiles)
+    v = TG.generate_fat_vector(1024, k, seed=R + C + k).astype(np.float32)
+    slabs = full(cw.chunk_slabs(wp.encode(torch.from_numpy(v)).contiguous(),
+                                C=C, split=False))
+    assert (tiles != _rna_tf32(tiles)).any() and (
+        slabs != _rna_tf32(slabs)).any()
+    args = (wp.pair_block, wp.pair_chunk)
+    exact = cw.windowed_matmul_single_plain(
+        *args, tiles.double(), slabs.double(), nb=wp.n_blocks)
+    cond = cw.windowed_matmul_single_plain(
+        *args, tiles.double().abs(), slabs.double().abs(), nb=wp.n_blocks)
+    bound = RTOL * cond + ATOL
+    three = _tf32_products(tiles, slabs, *args, wp.n_blocks, passes=3)
+    assert bool(((three.double() - exact).abs() <= bound).all())
+    one = _tf32_products(tiles, slabs, *args, wp.n_blocks, passes=1)
+    assert not bool(((one.double() - exact).abs() <= bound).all())
 
 
 # ---- the bf16 path through the entry points ----------------------------
