@@ -6,16 +6,20 @@
 The main path is the headline benchmark of the JAX package (``bench.py``)
 run through the port: the cop20k_A stand-in (121,192^2, ~2.62 M nnz,
 f32), a fat vector of k = 32, ``Auto().prepare`` (format search ->
-``WindowedPairs`` with transposed bf16 hi|lo planes), and the
-transposed-state chain (enc: permute, pad, kernel B2; body: kernel B1
-with the fused next-state epilogue; dec). Phases:
+``WindowedPairs`` with transposed bf16 hi|lo planes, kept on the card as
+their compact nonzero plane ``CompactTiles``), and the transposed-state
+chain (enc: permute, pad, kernel B2; body: kernel B1 with the fused
+next-state epilogue; dec). Phases:
 
 1. build the kernels from ``csrc/`` with ``nvcc`` (``-Xptxas -v`` report);
-2. build the operand and print its route;
+2. build the operand (``auto_format`` on the host, then ``to(cuda)``,
+   which builds the compact plane; that build is also timed alone) and
+   print its route and the plane's bytes;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, at the main path's shapes (B2 bitwise; B1 fused and unfused
    within ``1e-5 * cond + 1e-6``, ``cond`` = plain B1 on the planes'
-   absolute values, the fused state bitwise equal to the split of the
+   absolute values, the plain version on the dense planes rebuilt from
+   the compact one, the fused state bitwise equal to the split of the
    unfused sum; plus B1 on a block-spanning small operand), and
    their times over many launches after warm-up;
 4. main path: launch counts zeroed, a one-shot ``spmm_any`` and the
@@ -55,7 +59,10 @@ Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
 on the card outside the timing; none for B2's split mode) and compute
 its bound (``bound_ms``: the larger of its bytes over the H100 SXM's
-3.35 TB/s and its operations over the peak for their type).
+3.35 TB/s and its operations over the peak for their type). B1 and B6
+read the compact plane, so their bound counts its bytes and one f32 FMA
+per entry, plane and column of k; ``dense_bound_ms`` beside it is the
+bound of the dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 and
@@ -240,15 +247,16 @@ def kernel_phase(wp, v):
                  **bound(nbytes(v_p, slabs), 0, "f32"), "library_ms": None,
                  "mode1_ms": mode1_ms, "mode1_library_ms": mode1_library_ms}
 
-    args = (wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs)
+    ct = wp.tiles_t  # the compact plane, all the kernel reads of the tiles
+    dense = ct.to_dense()
+    args = (wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs)
     kw = dict(nb=nb, pairs_per_step=U, split=True)
-    plain_args = (wp.pair_block, wp.pair_chunk, wp.tiles_t, slabs)
+    plain_args = (wp.pair_block, wp.pair_chunk, dense, slabs)
     plain_kw = dict(nb=nb, split=True)
     got = cw.windowed_matmul_tmulti(*args, **kw)
     want = cw.windowed_matmul_tmulti_plain(*plain_args, **plain_kw)
     cond = cw.windowed_matmul_tmulti_plain(
-        wp.pair_block, wp.pair_chunk, wp.tiles_t.abs(), slabs.abs(),
-        **plain_kw)
+        wp.pair_block, wp.pair_chunk, dense.abs(), slabs.abs(), **plain_kw)
     excess, err_unfused = b1_error(got, want, cond)
     print(f"B1 unfused {tuple(got.shape)} max_abs_err={err_unfused} "
           f"tolerance_excess={excess}")
@@ -269,23 +277,30 @@ def kernel_phase(wp, v):
           f"tolerance_excess={excess}")
     check(excess <= 0, "B1 (fused) outside tolerance of its plain version")
     del want, cond, fused_p
-    P, _, R = wp.tiles_t.shape
+    P, _, R = ct.shape
     k8 = slabs.shape[1]
+    # slabs, the work list and the fused bf16 [hi | lo] state (nb, k8, 2R)
+    rest = nbytes(slabs, wp.pair_chunk, wp.block_ptr) + nb * k8 * 2 * R * 2
     a_csr = windowed_csr(wp)
     out["B1"] = {
         "max_abs_err": max(err_unfused, err_fused),
         "ms": cuda_ms(lambda: cw.windowed_matmul_tmulti(
-            *args, fuse_resplit=True, **kw), 50),
+            *args, fuse_resplit=True, **kw), 200),
         "plain_ms": cuda_ms(lambda: cw.windowed_matmul_tmulti_plain(
             *plain_args, fuse_resplit=True, **plain_kw), 5, warmup=1),
-        # tiles, slabs, the work list and the fused bf16 [hi | lo] state
-        # (nb, k8, 2R); three bf16 products per tile.
-        **bound(nbytes(wp.tiles_t, slabs, wp.pair_chunk, wp.block_ptr)
-                + nb * k8 * 2 * R * 2, 3 * 2 * P * C * R * k8, "bf16"),
+        # the compact plane and the rest; three f32 FMAs per entry and k
+        **bound(ct.nbytes + rest, 3 * 2 * ct.nnz * k8, "f32"),
+        # the dense tiles and the rest; three bf16 products per tile
+        "dense_bound_ms": bound(nbytes(dense) + rest,
+                                3 * 2 * P * C * R * k8, "bf16")["bound_ms"],
         "library_ms": library_ms("B1", a_csr, v_p),
         "unfused_ms": cuda_ms(lambda: cw.windowed_matmul_tmulti(*args, **kw),
-                              50),
+                              200),
     }
+    print(f"B1 fused {out['B1']['ms']} ms, unfused {out['B1']['unfused_ms']}"
+          f" ms, bound {out['B1']['bound_ms']} ms (compact plane "
+          f"{ct.nbytes} B), dense-tile bound {out['B1']['dense_bound_ms']} "
+          f"ms, library {out['B1']['library_ms']} ms")
     return out
 
 
@@ -296,7 +311,7 @@ def spans_blocks_case(dev):
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
-        WindowedPairs,
+        CompactTiles, WindowedPairs,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
         fem3d_csr, generate_fat_vector,
@@ -308,17 +323,20 @@ def spans_blocks_case(dev):
     from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import _finish
 
     csr = fem3d_csr(512, 8192, seed=2).astype(np.float32)
-    wp = WindowedPairs.from_csr(csr, block_rows=8, chunk_cols=128,
-                                reorder=None, pairs_per_step=8,
-                                beat_gather_margin=1e9, max_inflation=1e9)
-    check(bool((np.diff(wp.block_ptr) % 8 != 0).any()),
+    host = WindowedPairs.from_csr(csr, block_rows=8, chunk_cols=128,
+                                  reorder=None, pairs_per_step=8,
+                                  beat_gather_margin=1e9, max_inflation=1e9)
+    check(bool((np.diff(host.block_ptr) % 8 != 0).any()),
           "spans-blocks operand has no block run that spans a step")
-    wp = wp.to(dev)
+    # R = 8 routes to the plain path, so the card copy keeps dense tiles;
+    # the kernel gets the compact plane built here.
+    wp = host.to(dev)
+    ct = CompactTiles.from_dense(host.tiles_t, True).to(dev)
     v_host = generate_fat_vector(csr.shape[1], 16, seed=3).astype(np.float32)
     v_p = wp.encode(torch.from_numpy(v_host).to(dev)).contiguous()
     slabs = cw.chunk_slabs(v_p, C=128, split=True)
     got = cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
+        wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs,
         nb=wp.n_blocks, pairs_per_step=8, split=True)
     want = cw.windowed_matmul_tmulti_plain(
         wp.pair_block, wp.pair_chunk, wp.tiles_t, slabs, nb=wp.n_blocks)
@@ -945,6 +963,9 @@ def phased_phase(dev, csr, power):
     from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
         run_benchmark,
     )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        CompactTiles,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
         generate_fat_vector,
     )
@@ -958,22 +979,25 @@ def phased_phase(dev, csr, power):
     wp = Auto(phase_layout=True).prepare(csr, dev)
     torch.cuda.synchronize()
     route = windowed_route(wp)
+    ct = wp.tiles_t
     print(f"phased: prepare {time.perf_counter() - t0:.2f} s; route {route};"
           f" phases {wp.phases}; chunks_per_phase {wp.chunks_per_phase}; "
-          f"tiles_t {tuple(wp.tiles_t.shape)} {wp.tiles_t.dtype}")
+          f"tiles_t {tuple(ct.shape)} {ct.dtype} as {type(ct).__name__}, "
+          f"{ct.nnz} entries, {ct.nbytes} B")
     check(wp.phases == PHASES and wp.chunks_per_phase == 448
-          and tuple(wp.tiles_t.shape) == (10768, 256, 128)
-          and wp.tiles_t.dtype == torch.bfloat16 and route["U"] == 16
+          and isinstance(ct, CompactTiles)
+          and tuple(ct.shape) == (10768, 256, 128)
+          and ct.dtype == torch.bfloat16 and route["U"] == 16
           and wp.supports_transposed_chain,
           f"unexpected phased route {route} {wp.phases}")
     v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
     v = torch.from_numpy(v_host).to(dev)
     slabs = cw.chunk_slabs(wp.encode(v).contiguous(), C=wp.chunk_cols,
                            split=True)
-    args = (wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, wp.tiles_t,
-            slabs)
+    args = (wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, ct, slabs)
     kw = dict(nb=wp.n_blocks, phases=wp.phases,
               chunks_per_phase=wp.chunks_per_phase, pairs_per_step=16)
+    dense = ct.to_dense()  # the plain version's tiles
 
     def plain(t, s):
         return cw.windowed_matmul_tmulti_phased_plain(
@@ -983,12 +1007,12 @@ def phased_phase(dev, csr, power):
     b6 = kernel_vs_plain(
         "B6 windowed_matmul_tmulti_phased resident",
         lambda: cw.windowed_matmul_tmulti_phased(*args, **kw), plain,
-        wp.tiles_t, slabs)
+        dense, slabs, n=200)
     streamed = kernel_vs_plain(
         "B6 windowed_matmul_tmulti_phased streamed (B1 per phase)",
         lambda: cw.windowed_matmul_tmulti_phased(*args, force_streamed=True,
                                                  **kw), plain,
-        wp.tiles_t, slabs)
+        dense, slabs, n=200)
     same = torch.equal(cw.windowed_matmul_tmulti_phased(*args, **kw),
                        cw.windowed_matmul_tmulti_phased(
                            *args, force_streamed=True, **kw))
@@ -996,13 +1020,18 @@ def phased_phase(dev, csr, power):
           f"resident {b6['ms']} ms, streamed {streamed['ms']} ms, plain "
           f"{b6['plain_ms']} ms")
     check(same, "B6 resident and streamed routes differ")
-    P, C2, R = wp.tiles_t.shape
-    b6.update(bound(nbytes(wp.tiles_t, slabs, wp.pair_chunk_ph,
-                           wp.block_ptr_ph) + wp.n_blocks * K * R * 4,
-                    3 * 2 * P * (C2 // 2) * R * K, "bf16"),
+    P, C2, R = ct.shape
+    # slabs, the work list and the f32 output; the plane, three f32 FMAs
+    # per entry and k (dense: the tiles, three bf16 products per tile)
+    rest = (nbytes(slabs, wp.pair_chunk_ph, wp.block_ptr_ph)
+            + wp.n_blocks * K * R * 4)
+    b6.update(bound(ct.nbytes + rest, 3 * 2 * ct.nnz * K, "f32"),
+              dense_bound_ms=bound(nbytes(dense) + rest,
+                                   3 * 2 * P * (C2 // 2) * R * K,
+                                   "bf16")["bound_ms"],
               library_ms=library_ms("B6", windowed_csr(wp),
                                     wp.encode(v).contiguous()))
-    del slabs, args
+    del slabs, args, dense
 
     phases = wp.phases
     oracle, cond = oracle_parts(csr, v_host)
@@ -1037,7 +1066,8 @@ def phased_phase(dev, csr, power):
         "b6_resident_ms": b6["ms"], "b6_streamed_ms": streamed["ms"],
         "power": power}))
     return entry("B6", "windowed_matmul_tmulti_phased", SRC, REPLACES["B6"],
-                 counts["B6"], b6, streamed_ms=streamed["ms"],
+                 counts["B6"], b6, dense_bound_ms=b6["dense_bound_ms"],
+                 streamed_ms=streamed["ms"],
                  streamed_max_abs_err=streamed["max_abs_err"])
 
 
@@ -1053,7 +1083,7 @@ def main() -> int:
             run_benchmark,
         )
         from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
-            WindowedPairs,
+            CompactTiles, WindowedPairs,
         )
         from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
             cop20k_like, generate_fat_vector,
@@ -1061,7 +1091,9 @@ def main() -> int:
         from sparsematrixmultiplicationmpi_tpu_torch.ops import (
             _kernel_lib, cuda_windowed as cw,
         )
-        from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
+        from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+            auto_format, spmm_any,
+        )
         from sparsematrixmultiplicationmpi_tpu_torch.ops.oracle import (
             spmm_host_f64,
         )
@@ -1100,11 +1132,27 @@ def main() -> int:
     t0 = time.perf_counter()
     csr = cop20k_like(dtype=np.float32)
     t1 = time.perf_counter()
-    wp = Auto().prepare(csr, dev)
+    host = auto_format(csr)  # Auto().prepare is this, then .to(device)
+    t_host = time.perf_counter()
+    check(isinstance(host, WindowedPairs),
+          f"route is {type(host).__name__}, not WindowedPairs")
+    wp = host.to(dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    check(isinstance(wp, WindowedPairs),
-          f"route is {type(wp).__name__}, not WindowedPairs")
+    t3 = time.perf_counter()
+    plane = CompactTiles.from_dense(host.tiles_t, host.split)
+    build_s = time.perf_counter() - t3
+    check(isinstance(wp.tiles_t, CompactTiles) and wp.tiles is None
+          and wp.tiles_split is None and wp.tiles_t.nnz == plane.nnz
+          and wp.tiles_t.shape == host.tiles_t.shape,
+          "the card copy does not hold the compact plane in place of "
+          "tiles_t")
+    print(f"compact plane: {plane.nnz} entries, {wp.tiles_t.nbytes} B on the"
+          f" card in place of the dense tiles_t {host.tiles_t.nbytes} B "
+          f"{tuple(host.tiles_t.shape)}; built on the host in {build_s} s; "
+          f"auto_format {t_host - t1:.2f} s, to(cuda) {t2 - t_host:.2f} s")
+    plane_bytes = wp.tiles_t.nbytes
+    del host, plane
     route = dict(type=type(wp).__name__, R=wp.block_rows, C=wp.chunk_cols,
                  U=wp.pairs_per_step, P=wp.n_pairs, nb=wp.n_blocks,
                  pad_rows=wp.pad_rows, spill=wp.spill is not None,
@@ -1145,6 +1193,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     print(f"one-shot spmm_any: correct={one_shot_ok} "
           f"max_abs_err={max_abs_error(one_shot, oracle)}")
+    print(f"main path peak device memory (one-shot and run_benchmark): "
+          f"{peak} B")
     print(f"launch counts {counts}; chain body calls {strat.body_calls}")
     result = {
         "metric": "spmm_gnnz_per_s_cop20k_k32",
@@ -1157,6 +1207,8 @@ def main() -> int:
         "device_kind": rec.device_kind, "power": power,
         "nnz": rec.nnz, "k": rec.k, "dtype": rec.dtype,
         "launches": counts, "max_memory_allocated": peak,
+        "compact_plane_bytes": plane_bytes,
+        "compact_plane_build_s": build_s,
     }
     print(json.dumps(result))
     check(one_shot_ok, "one-shot spmm_any disagrees with the f64 oracle")
@@ -1169,11 +1221,13 @@ def main() -> int:
     check(counts["B2"] == 2, f"B2 launches {counts['B2']} != 2 "
           "(one-shot relayout + chain encode)")
 
-    kernels = [entry(name, label, SRC, REPLACES[name], counts[name],
-                     timings[name])
-               for name, label in (("B1", "windowed_matmul_tmulti"),
-                                   ("B2", "chunk_slabs"))]
-    print(f"B1 unfused ms {timings['B1']['unfused_ms']}")
+    b1 = timings["B1"]
+    kernels = [
+        entry("B1", "windowed_matmul_tmulti", SRC, REPLACES["B1"],
+              counts["B1"], b1, dense_bound_ms=b1["dense_bound_ms"],
+              unfused_ms=b1["unfused_ms"]),
+        entry("B2", "chunk_slabs", SRC, REPLACES["B2"], counts["B2"],
+              timings["B2"])]
 
     # 5. solver path
     kernels.append(solver_phase(dev, power))

@@ -7,8 +7,10 @@
 Builds the cop20k_A stand-in on the first CUDA device through ``Auto``
 (the options go to its format search, or, for ``--spill-dma-gather``,
 route the spill through kernel B7), encodes a k = 32 fat vector once,
-then runs 50 back-to-back chain bodies twice: on the host clock alone
-(milliseconds per body, gaps between launches included) and under
+then runs 50 back-to-back chain bodies three times: on the host clock
+alone (milliseconds per body, gaps between launches included), on the
+host clock without waiting for the device (the host's own issue time
+per body), and under
 ``torch.profiler`` (each kernel's device time, and the share of the
 profiled window in which the device was busy; the ``aten::`` and CUDA
 runtime rows repeat their kernels' time and are left out of the sum).
@@ -71,6 +73,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run()
     host_ms = (time.perf_counter() - t0) / N * 1e3
+    # The host's own time per body: N bodies enqueued with no wait (the
+    # launch queue holds them), the device then drained outside the clock.
+    t0 = time.perf_counter()
+    for _ in range(N):
+        body(state, op)
+    enqueue_ms = (time.perf_counter() - t0) / N * 1e3
+    torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,7 +102,7 @@ def main(argv=None) -> int:
         "format": {**format_kwargs, "dtype": args.dtype,
                    "spill_dma_gather": args.spill_dma_gather},
         "n": N, "k": K,
-        "host_ms_per_body": host_ms,
+        "host_ms_per_body": host_ms, "host_enqueue_ms_per_body": enqueue_ms,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": busy_ms / wall_ms, "kernels": kernels}))
     return 0

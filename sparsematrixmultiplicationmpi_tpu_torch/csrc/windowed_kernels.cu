@@ -11,7 +11,7 @@
 //     pallas_windowed.py:_kernel_tmulti (wrapper windowed_matmul_tmulti).
 //
 //   out_t[b] (k8 x R) = sum over pairs p of block b of
-//                       slab[pair_chunk[p]] (k8 x C) . tiles_t[p] (C x R)
+//                       slab[pair_chunk[p]] (k8 x C) . tile_t[p] (C x R)
 //   split3: sh.th + sh.tl + sl.th with bf16 hi/lo planes, f32 accumulation.
 //   fuse:   the block's sum is written as the next chain state, bf16
 //           [hi | lo] along the last axis (k8 x 2R), instead of f32.
@@ -23,23 +23,51 @@
 //   [block_ptr[b], block_ptr[b+1]): no cross-CTA reduction, no atomics,
 //   a deterministic result, and a block with an empty run writes zeros.
 //
-//   What bounds it on the H100: per cop20k iterate it streams tiles_t
-//   (10,288 pairs x 256 x 128 bf16 = 674 MB; >= 0.2 ms at 3.35 TB/s) and
-//   computes 32.4 GFLOP of split3 products. On CUDA-core f32 FMAs
-//   (67 TFLOP/s) that is >= 0.5 ms of compute; this kernel runs the
-//   products on the tensor cores instead (mma.sync m16n8k16, bf16 in,
-//   f32 accumulate: exact products, like the TPU's DEFAULT-precision
-//   dots), which leaves the tile stream as the bound. The design keeps
-//   that stream moving: a pair's tile goes to shared memory 128
-//   contraction rows at a time (64 KB for both planes) with cp.async, 16
-//   bytes a thread and all in flight at once, next to its slab rows
-//   (17 KB); two CTAs share an SM, so one computes while the other
-//   loads. Rows are padded by 16 bytes so ldmatrix (tile, transposed)
-//   and the 32-bit slab fragment loads are free of bank conflicts. Each
-//   of the 8 warps owns 16 output columns and all 32 rows: per 16-deep
-//   step it loads 2 x 2 slab fragments and 2 x 2 tile fragments and
-//   issues 12 mma (sh.th, sh.tl, sl.th for 2 x 2 output tiles). TMA,
-//   wgmma and a deeper pipeline are later work.
+//   The tile operand is the compact plane (formats/windowed.py::
+//   CompactTiles), not the dense tiles: per tile, column-major by output
+//   column r, each nonzero's contraction index c (uint8, int16 past C =
+//   256) and its bf16 hi | lo bits in one 32-bit word, with per-tile
+//   column offsets (uint16 while C * R <= 65535, else int32). The dense
+//   tiles of the cop20k main path are 98.4 % zeros (2.62 M nonzeros in
+//   10,288 tiles of 128 x 128, 255 a tile on average): 674 MB a multiply
+//   against ~13 MB of entries.
+//
+//   What bounds it on the H100: bytes, each input read once and the
+//   output written once: on cop20k at k = 32 the entries and offsets
+//   (~16 MB), the slabs (15.5 MB) and the fused state (15.5 MB), ~47 MB,
+//   >= 0.014 ms at 3.35 TB/s; its 0.5 GFLOP of f32 FMAs (three per
+//   entry and k) take >= 0.008 ms on the CUDA cores. The work a CTA
+//   really does is larger: it stages every pair's whole slab (k8 x 2C,
+//   16 KB) from L2 into shared memory, 169 MB a multiply, and each entry
+//   costs shared loads (its record, its column, the slab words of its c)
+//   and three FMAs for each of the k8 rows.
+//
+//   Design. The CTA walks windows of up to kCap entries of its columns,
+//   a pair at a time (a denser tile takes several windows). Per window
+//   it stages the slab transposed and interleaved, word [c][kk] = hi |
+//   lo << 16, kk XOR-swizzled so that both the copy's stores and the 32
+//   lanes' reads of one c are free of bank conflicts, and one record per
+//   entry (the swizzled offset of c and the tile bits) with the entry's
+//   column. Sixteen workers, the half-warps, then split the window's
+//   entries into even runs, each moved to a column start so that no
+//   column is shared (the split points come from the column threads, no
+//   search), and walk them four entries at a time: a lane holds rows kk
+//   = 2j and 2j + 1, so one 64-bit shared load brings its two slab words
+//   and one warp instruction serves two entries; a running sum per
+//   column is added to the column's accumulator in shared memory when
+//   the column changes. So the work is balanced whatever the tile's
+//   column counts (2 per column on average, at most 26), and the code
+//   has one loop body. The next window's slab unit, entries and column
+//   bounds are loaded into registers while a window is computed, the
+//   run's pair indices sit in shared memory, and two stage buffers let
+//   one barrier per window separate a buffer's reads from its next
+//   writes. On the H100 the time is far above the byte bound: the
+//   per-window staging and each CTA's chain of windows set it
+//   (bench/probe_b1.py, PERF.md).
+//
+//   Stored zeros are never multiplied: an Inf or NaN in the fat vector
+//   reaches only the outputs of the entries that read it, as in a CSR
+//   product (the TPU kernel's dense dot spreads it over the whole tile).
 //
 // B2  chunk_slabs_launch — replaces pallas_windowed.py:chunk_slabs (its
 //     Pallas relayout body).
@@ -71,8 +99,10 @@
 //   covers every phase, CTA x is the x-th (phase, local block) in phase
 //   order, so the CTAs in flight at any time work on one or two phases'
 //   windows and re-read their slabs from L2. Inside a CTA the work is
-//   B1's (same device function, same tile stream, same bound: the
-//   tiles_t stream, 705.7 MB per cop20k multiply).
+//   B1's: the same device function on the phase layout's compact plane
+//   (the streamed route runs B1 on each phase's slice of it), so the two
+//   routes agree bit for bit. Same bound as B1 (the phase layout's
+//   dummies add no entries).
 //
 // B3  natural_launch mode 0 — replaces pallas_windowed.py:_kernel_split3
 //     (wrapper windowed_matmul_split3).
@@ -149,12 +179,8 @@
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kCB = 128;   // contraction rows (of C) staged per step
-constexpr int kKS = 32;    // k8 rows per CTA (two m16 tiles)
-constexpr int kRS = 128;   // R columns per CTA (8 warps x 16)
-constexpr int kPad = 8;    // bf16 row padding: 16 bytes
-constexpr int kTileLd = kRS + kPad;  // staged tile row stride (bf16)
-constexpr int kSlabLd = kCB + kPad;  // staged slab row stride (bf16)
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 8;        // bf16 row padding of the natural kernels
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -166,33 +192,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-// Two k16 x n8 B fragments (n-tiles n0 and n0 + 8) from a row-major
-// [k][n] bf16 tile: rows k0 + (lane % 16), transposed on load.
-__device__ __forceinline__ void ldmatrix_b(const __nv_bfloat16* tile, int ld,
-                                           int k0, int n0, int lane,
-                                           unsigned (&b)[2][2]) {
-  const __nv_bfloat16* p = tile + (k0 + (lane & 15)) * ld + n0 +
-                           ((lane >> 4) << 3);
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
-      : "r"(a));
-}
-
-// The m16 x k16 A fragment at rows m0.., columns k0.. of a row-major
-// [m][k] bf16 slab.
-__device__ __forceinline__ void load_a(const __nv_bfloat16* slab, int ld,
-                                       int m0, int k0, int lane,
-                                       unsigned (&a)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* p = slab + (m0 + g) * ld + k0 + 2 * t;
-  a[0] = *reinterpret_cast<const unsigned*>(p);
-  a[1] = *reinterpret_cast<const unsigned*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const unsigned*>(p + 8);
-  a[3] = *reinterpret_cast<const unsigned*>(p + 8 * ld + 8);
-}
-
 __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
                                     const unsigned (&b)[2]) {
   asm volatile(
@@ -202,169 +201,405 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ---- B1 / B6: the compact tile plane ----------------------------------
+
+constexpr int kCKS = 32;                // k8 rows per CTA: one per lane
+constexpr int kCCols = 16;              // output columns per warp
+constexpr int kCRS = kWarps * kCCols;   // output columns per CTA
+constexpr int kWorkers = 2 * kWarps;    // half-warps: each walks its own run
+constexpr int kCMax = 512;              // widest chunk a CTA stages
+constexpr int kCap = 1024;              // entries of a pair a CTA stages
+constexpr int kSeg = 64;                // pair indices a CTA holds at once
+
+// The compact plane (formats/windowed.py::CompactTiles): pair_nz_ptr
+// (P + 1) int32 global entry offsets, col_ptr (P, R + 1) ColT offsets
+// within the pair, rows (nnz) RowT contraction indices, vals (nnz) Word
+// (bf16 hi | lo << 16 with split, else one bf16).
+struct Compact {
+  const int* nz_ptr;
+  const void* col_ptr;
+  const void* rows;
+  const void* vals;
+};
+
+// A staged slab value or an entry: bf16 hi | lo << 16 (split), or bf16.
 template <bool SPLIT>
-constexpr int tmulti_smem_bytes() {
-  return (SPLIT ? 2 : 1) * (kCB * kTileLd + kKS * kSlabLd) *
-         static_cast<int>(sizeof(__nv_bfloat16));
+struct WordOf {
+  using T = uint16_t;
+};
+template <>
+struct WordOf<true> {
+  using T = uint32_t;
+};
+
+// Two stage buffers (a slab, kCap 8-byte entry records and kCap column
+// ids each) and the accumulators.
+template <bool SPLIT>
+constexpr int tmulti_smem_bytes(int C) {
+  return 2 * (C * kCKS * static_cast<int>(sizeof(typename WordOf<SPLIT>::T)) +
+              kCap * 9) +
+         kCRS * kCKS * 4 + kSeg * 16 + 64 * 4;
+}
+
+// a + s . t for a staged slab word s and an entry's tile bits t: split3
+// sh.th + sh.tl + sl.th in f32 FMAs, or one product.
+__device__ __forceinline__ float fma_word(uint32_t s, int t, float a) {
+  const float sh = __uint_as_float(s << 16);
+  const float sl = __uint_as_float(s & 0xffff0000u);
+  const float th = __uint_as_float(static_cast<uint32_t>(t) << 16);
+  a = fmaf(sh, th, a);
+  a = fmaf(sh, __uint_as_float(static_cast<uint32_t>(t) & 0xffff0000u), a);
+  return fmaf(sl, th, a);
+}
+
+__device__ __forceinline__ float fma_word(uint16_t s, int t, float a) {
+  return fmaf(__uint_as_float(static_cast<uint32_t>(s) << 16),
+              __uint_as_float(static_cast<uint32_t>(t) << 16), a);
+}
+
+// The staged slab is c-major, s[c][kk] for the 32 rows kk of the CTA's
+// k8 slice, with kk XOR-swizzled by the 8-column group of c: the 32 lanes
+// reading one c (one per kk) and the stores of a copy step each hit 32
+// distinct banks.
+__device__ __forceinline__ int swizzled(int c, int kk) {
+  return c * kCKS + (kk ^ ((c >> 1) & 0x1c));
+}
+
+// One staging unit: 16 columns of one slab row, in two 8-column groups
+// (c0 and c0 + C / 2) so that the lanes of a row read it contiguously,
+// 16 bytes each; hi and lo planes for split slabs.
+struct Unit {
+  uint4 h0, h1, l0, l1;
+};
+
+template <bool SPLIT>
+__device__ __forceinline__ Unit load_unit(const __nv_bfloat16* row, int c0,
+                                          int C) {
+  Unit u{};
+  u.h0 = __ldg(reinterpret_cast<const uint4*>(row + c0));
+  u.h1 = __ldg(reinterpret_cast<const uint4*>(row + c0 + C / 2));
+  if constexpr (SPLIT) {
+    u.l0 = __ldg(reinterpret_cast<const uint4*>(row + C + c0));
+    u.l1 = __ldg(reinterpret_cast<const uint4*>(row + C + c0 + C / 2));
+  }
+  return u;
+}
+
+// 8 columns from c of one plane (or hi | lo << 16 of two) into s.
+template <bool SPLIT>
+__device__ __forceinline__ void store_group(typename WordOf<SPLIT>::T* s,
+                                            int c, int kk, uint4 h,
+                                            uint4 l) {
+  const unsigned hw[4] = {h.x, h.y, h.z, h.w};
+  const unsigned lw[4] = {l.x, l.y, l.z, l.w};
+  const int at = swizzled(c, kk);  // the group shares one swizzle
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (SPLIT) {
+      s[at + 2 * i * kCKS] = __byte_perm(hw[i], lw[i], 0x5410);
+      s[at + (2 * i + 1) * kCKS] = __byte_perm(hw[i], lw[i], 0x7632);
+    } else {
+      s[at + 2 * i * kCKS] = static_cast<uint16_t>(hw[i] & 0xffffu);
+      s[at + (2 * i + 1) * kCKS] = static_cast<uint16_t>(hw[i] >> 16);
+    }
+  }
+}
+
+template <bool SPLIT>
+__device__ __forceinline__ void store_unit(typename WordOf<SPLIT>::T* s,
+                                           int c0, int kk, int C,
+                                           const Unit& u) {
+  store_group<SPLIT>(s, c0, kk, u.h0, u.l0);
+  store_group<SPLIT>(s, c0 + C / 2, kk, u.h1, u.l1);
+}
+
+// Lane kk's and kk + 1's staged slab words at word index i (even).
+template <bool SPLIT>
+__device__ __forceinline__ void load_pair(
+    const typename WordOf<SPLIT>::T* s, int i, uint32_t& w0, uint32_t& w1) {
+  if constexpr (SPLIT) {
+    const uint2 v = *reinterpret_cast<const uint2*>(s + i);
+    w0 = v.x;
+    w1 = v.y;
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(s + i);
+    w0 = v & 0xffffu;
+    w1 = v >> 16;
+  }
+}
+
+// acc[0] += a, acc[1] += b (one 64-bit load and store).
+__device__ __forceinline__ void add_pair(float* acc, float a, float b) {
+  float2 v = *reinterpret_cast<float2*>(acc);
+  v.x += a;
+  v.y += b;
+  *reinterpret_cast<float2*>(acc) = v;
+}
+
+// hi = rn(x), lo = rn(x - hi): the bits of the fused chain state.
+__device__ __forceinline__ void split_rn(float x, unsigned& hi,
+                                         unsigned& lo) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  hi = __bfloat16_as_ushort(h);
+  lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __bfloat162float(h)));
 }
 
 // One CTA's share of an output block of B1 / B6: the pairs [p_begin,
-// p_end) (indices into tiles_t and pair_chunk), slabs at chunk_base +
-// pair_chunk[p], the sum written as output block `b` (k8 x R f32, or the
-// fused bf16 [hi | lo] state k8 x 2R). blockIdx.y / .z pick the k8 and R
-// slices.
-template <bool SPLIT, bool FUSE>
+// p_end) (indices into the compact plane and pair_chunk), slabs at
+// chunk_base + pair_chunk[p], the sum written as output block `b` (k8 x R
+// f32, or the fused bf16 [hi | lo] state k8 x 2R). blockIdx.y / .z pick
+// the k8 and R slices.
+//
+// The CTA walks windows of up to kCap entries of its columns (a tile
+// with more takes several): per window it stages the slab and one record
+// per entry (the swizzled slab offset of c and the tile value) with the
+// entry's column, then the 16 half-warps split the window's entries into
+// even runs, each moved to a column start so that no column is shared,
+// and walk them four entries at a time: a running sum per column, added
+// to the column's accumulator in shared memory when the column changes.
+// Software-pipelined: while one window is computed, the next window's
+// slab unit and entries are in flight to registers, and the next pair's
+// indices, so no global load's latency sits between two windows; one
+// barrier per window, two stage buffers.
+template <bool SPLIT, bool FUSE, typename ColT, typename RowT>
 __device__ __forceinline__ void tmulti_block(
     int p_begin, int p_end, const int* __restrict__ pair_chunk,
-    int chunk_base, const __nv_bfloat16* __restrict__ tiles_t,
-    const __nv_bfloat16* __restrict__ slabs, void* __restrict__ out, int b,
-    int C, int R, int k8) {
-  constexpr int planes = SPLIT ? 2 : 1;
+    int chunk_base, Compact tiles, const __nv_bfloat16* __restrict__ slabs,
+    void* __restrict__ out, int b, int C, int R, int k8) {
+  using Word = typename WordOf<SPLIT>::T;
+  constexpr int kPer = kCap / kThreads;  // entries a thread stages
   extern __shared__ __align__(16) unsigned char smem[];
-  // s_tile[plane][c][r] (stride kTileLd), s_slab[plane][kk][c] (stride
-  // kSlabLd), both bf16.
-  __nv_bfloat16* s_tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_slab = s_tile + planes * kCB * kTileLd;
+  // Two slab buffers (C x kCKS words), two record buffers, two column-id
+  // buffers, the accumulators [kCRS][kCKS].
+  Word* s_slab = reinterpret_cast<Word*>(smem);
+  int2* s_rec = reinterpret_cast<int2*>(s_slab + 2 * C * kCKS);
+  float* s_acc = reinterpret_cast<float*>(s_rec + 2 * kCap);
+  int4* s_idx = reinterpret_cast<int4*>(s_acc + kCRS * kCKS);
+  int* s_split = reinterpret_cast<int*>(s_idx + kSeg);  // two of kWorkers + 1
+  unsigned char* s_col = reinterpret_cast<unsigned char*>(s_split + 64);
 
-  const int k_base = blockIdx.y * kKS;
-  const int r_base = blockIdx.z * kRS;
-  const int ks = min(kKS, k8 - k_base);   // multiple of 8
-  const int rs = min(kRS, R - r_base);    // multiple of 8
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int n0 = (tid >> 5) * 16;         // this warp's first column
-  const bool active = n0 < rs;
+  const int warp = tid >> 5;
+  const int k_base = blockIdx.y * kCKS;
+  const int ks = min(kCKS, k8 - k_base);        // multiple of 8
+  const int r_base = blockIdx.z * kCRS;
+  const int rs = min(kCRS, R - r_base);         // the CTA's columns
+  const size_t slab_row = static_cast<size_t>(SPLIT ? 2 : 1) * C;
+  const int upr = C / 16;            // staging units per slab row
+  const int kk_u = tid / upr;        // this thread's first unit: row,
+  const int c_u = (tid % upr) * 8;   // and first column
+  const ColT* __restrict__ col_ptr = static_cast<const ColT*>(tiles.col_ptr);
+  const RowT* __restrict__ rows = static_cast<const RowT*>(tiles.rows);
+  const Word* __restrict__ vals = static_cast<const Word*>(tiles.vals);
 
-  // Slab rows [ks, kKS) stay zero: their outputs are computed and
-  // dropped, so a k8 that is not a multiple of 16 needs no other case.
-  for (int i = tid; i < planes * kKS * kSlabLd; i += kThreads) {
-    s_slab[i] = __float2bfloat16_rn(0.f);
-  }
+  for (int i = tid; i < kCRS * kCKS; i += kThreads) s_acc[i] = 0.f;
 
-  float acc[2][2][4];  // [m-tile][n-tile][fragment]
+  auto slab_of = [&](int chunk, int kk) {
+    return slabs + ((static_cast<size_t>(chunk_base) + chunk) * k8 + k_base +
+                    kk) * slab_row;
+  };
+  // The indices of pairs [seg0, seg0 + kSeg) of the run, in shared
+  // memory: global offset of the pair's first entry, its chunk, and the
+  // pair-relative offsets of the CTA's first and past-last entry.
+  int seg0 = p_begin;
+  auto load_seg = [&]() {
+    for (int i = tid; i < kSeg && seg0 + i < p_end; i += kThreads) {
+      const int q = seg0 + i;
+      const ColT* cp = col_ptr + static_cast<size_t>(q) * (R + 1) + r_base;
+      s_idx[i] = make_int4(__ldg(tiles.nz_ptr + q), __ldg(pair_chunk + q),
+                           __ldg(cp), __ldg(cp + rs));
+    }
+  };
+  // A window's staging unit, this thread's share of its entries and, for
+  // thread r < rs, the bounds of column r's entries (CTA-relative).
+  Unit unit{};
+  int e_c[kPer], e_t[kPer], col_a = 0, col_b = 0;
+  auto load_data = [&](int q, int w0) {
+    const int4 x = s_idx[q - seg0];
+    if (kk_u < ks) unit = load_unit<SPLIT>(slab_of(x.y, kk_u), c_u, C);
+    const int n = min(x.w - x.z - w0, kCap);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-
-  const size_t tile_elems = static_cast<size_t>(planes) * C * R;
-  const size_t slab_elems = static_cast<size_t>(k8) * planes * C;
-  const int vec_per_row = rs / 8;
-  for (int p = p_begin; p < p_end; ++p) {
-    const __nv_bfloat16* tile = tiles_t + static_cast<size_t>(p) * tile_elems;
-    const __nv_bfloat16* slab =
-        slabs + static_cast<size_t>(chunk_base + pair_chunk[p]) * slab_elems;
-    for (int c0 = 0; c0 < C; c0 += kCB) {
-      __syncthreads();  // the previous step's reads are done
-      // Tile rows [c0, c0 + kCB) of each plane, columns [r_base, +rs).
-      for (int i = tid; i < planes * kCB * vec_per_row; i += kThreads) {
-        const int row = i / vec_per_row;  // plane * kCB + c
-        const int v = i % vec_per_row;
-        const int plane = row / kCB;
-        const int c = row % kCB;
-        cp_async16(s_tile + row * kTileLd + v * 8,
-                   tile + (static_cast<size_t>(plane) * C + c0 + c) * R +
-                       r_base + v * 8);
-      }
-      // Slab rows [k_base, +ks), columns [c0, +kCB) of each plane.
-      constexpr int kVecPerSlabRow = kCB / 8;
-      for (int i = tid; i < planes * ks * kVecPerSlabRow; i += kThreads) {
-        const int row = i / kVecPerSlabRow;  // plane * ks + kk
-        const int v = i % kVecPerSlabRow;
-        const int plane = row / ks;
-        const int kk = row % ks;
-        cp_async16(s_slab + (plane * kKS + kk) * kSlabLd + v * 8,
-                   slab + static_cast<size_t>(k_base + kk) * planes * C +
-                       plane * C + c0 + v * 8);
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      if (active) {
-#pragma unroll 2
-        for (int k0 = 0; k0 < kCB; k0 += 16) {
-          unsigned th[2][2], ah[2][4];
-          ldmatrix_b(s_tile, kTileLd, k0, n0, lane, th);
-          load_a(s_slab, kSlabLd, 0, k0, lane, ah[0]);
-          load_a(s_slab, kSlabLd, 16, k0, lane, ah[1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) mma(acc[mt][nt], ah[mt], th[nt]);
-          if (SPLIT) {
-            unsigned tl[2][2], al[2][4];
-            ldmatrix_b(s_tile + kCB * kTileLd, kTileLd, k0, n0, lane, tl);
-            load_a(s_slab + kKS * kSlabLd, kSlabLd, 0, k0, lane, al[0]);
-            load_a(s_slab + kKS * kSlabLd, kSlabLd, 16, k0, lane, al[1]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 2; ++nt) {
-                mma(acc[mt][nt], ah[mt], tl[nt]);
-                mma(acc[mt][nt], al[mt], th[nt]);
-              }
-          }
-        }
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < n) {
+        e_c[i] = __ldg(rows + x.x + x.z + w0 + e);
+        e_t[i] = __ldg(vals + x.x + x.z + w0 + e);
       }
     }
-  }
-  if (!active) return;
-  // Fragment (mt, nt, j): row mt*16 + g + 8*(j/2), column n0 + nt*8 + 2t
-  // + (j%2); each thread writes column pairs.
-  const int g = lane >> 2, t = lane & 3;
+    if (tid < rs) {
+      const ColT* cp = col_ptr + static_cast<size_t>(q) * (R + 1) + r_base;
+      col_a = static_cast<int>(__ldg(cp + tid)) - x.z;
+      col_b = static_cast<int>(__ldg(cp + tid + 1)) - x.z;
+    }
+  };
+
+  load_seg();
+  __syncthreads();
+  int q = p_begin, w0 = 0;  // the window: pair q, CTA-relative entry w0
+  if (q < p_end) load_data(q, 0);
+  for (int win = 0; q < p_end; ++win) {
+    const int buf = win & 1;
+    Word* s = s_slab + buf * C * kCKS;
+    int2* rec = s_rec + buf * kCap;
+    unsigned char* col = s_col + buf * kCap;
+    int* split = s_split + buf * (kWorkers + 1);
+    const int4 x = s_idx[q - seg0];
+    // Their last readers finished before the previous window's barrier.
+    if (kk_u < ks) store_unit<SPLIT>(s, c_u, kk_u, C, unit);
+    for (int u = tid + kThreads; u < 2 * C; u += kThreads) {  // C > 128
+      const int kk = u / upr, c0 = (u % upr) * 8;
+      if (kk < ks) {
+        store_unit<SPLIT>(s, c0, kk, C,
+                          load_unit<SPLIT>(slab_of(x.y, kk), c0, C));
+      }
+    }
+    const int m = min(x.w - x.z - w0, kCap);  // the window's entries
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < m) {
+        const int c = e_c[i];
+        rec[e] = make_int2(c * kCKS + ((c >> 1) & 0x1c), e_t[i]);
+      }
+    }
+    if (tid < rs) {
+      // Column tid's entries in the window, [a, b): their column ids, and
+      // the start of every worker whose even share begins inside them (the
+      // next column start, so that no column is split between workers).
+      const int a = max(col_a - w0, 0), b = min(col_b - w0, m);
+      for (int e = a; e < b; ++e) col[e] = static_cast<unsigned char>(tid);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int w = 1; w < kWorkers; ++w) {
+        const int t = (w * m + kWorkers - 1) / kWorkers;
+        if (a <= t && t < b) split[w] = t == a ? a : b;
+      }
+    }
+    if (tid == 0) {  // and the shares that begin past the last entry
+      split[0] = 0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kk = mt * 16 + g + 8 * h;
-        const int rc = n0 + nt * 8 + 2 * t;
-        if (kk >= ks || rc >= rs) continue;
-        const float x0 = acc[mt][nt][2 * h], x1 = acc[mt][nt][2 * h + 1];
-        const size_t row = static_cast<size_t>(b) * k8 + k_base + kk;
-        const int r = r_base + rc;
-        if (FUSE) {
-          // Next chain state: bf16 hi | lo along the last axis, (nb, k8, 2R).
-          __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) +
-                             row * (2 * R);
-          const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
-          const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
-          *reinterpret_cast<__nv_bfloat162*>(o + r) = __halves2bfloat162(h0, h1);
-          *reinterpret_cast<__nv_bfloat162*>(o + R + r) = __halves2bfloat162(
-              __float2bfloat16_rn(x0 - __bfloat162float(h0)),
-              __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-        } else {
-          float* o = reinterpret_cast<float*>(out) + row * R;
-          *reinterpret_cast<float2*>(o + r) = make_float2(x0, x1);
+      for (int w = 1; w <= kWorkers; ++w) {
+        if ((w * m + kWorkers - 1) / kWorkers >= m) split[w] = m;
+      }
+    }
+    // Advance to the pair's next window, or the next pair, and prefetch.
+    w0 += kCap;
+    if (w0 >= x.w - x.z) {
+      w0 = 0;
+      ++q;
+    }
+    if (q < p_end) {
+      if (q >= seg0 + kSeg) {  // past the staged indices
+        __syncthreads();
+        seg0 = q;
+        load_seg();
+        __syncthreads();
+      }
+      load_data(q, w0);
+    }
+    __syncthreads();
+    // Worker w (half-warp w, lanes kk = 2j, 2j + 1) walks the run from
+    // entry ceil(w m / 16), moved to a column start, four entries at a
+    // time; one shared load brings a lane both of its slab words.
+    const int kk2 = 2 * (lane & 15);
+    int e = split[2 * warp + (lane >> 4)];
+    const int end = split[2 * warp + (lane >> 4) + 1];
+    int prev = e < end ? col[e] : -1;
+    float run0 = 0.f, run1 = 0.f;
+    while (__any_sync(0xffffffffu, e < end)) {
+      int2 r[4];
+      int cl[4];
+      uint32_t wa[4], wb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < end) {
+          r[i] = rec[e + i];
+          cl[i] = col[e + i];
         }
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < end) load_pair<SPLIT>(s, r[i].x ^ kk2, wa[i], wb[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < end) {
+          if (cl[i] != prev) {  // the column changed: add its sums
+            add_pair(s_acc + prev * kCKS + kk2, run0, run1);
+            run0 = run1 = 0.f;
+            prev = cl[i];
+          }
+          run0 = fma_word(static_cast<Word>(wa[i]), r[i].y, run0);
+          run1 = fma_word(static_cast<Word>(wb[i]), r[i].y, run1);
+        }
+      }
+      e += 4;
+    }
+    if (prev >= 0) add_pair(s_acc + prev * kCKS + kk2, run0, run1);
+  }
+  __syncthreads();
+  const int r0 = r_base + warp * kCCols;          // this warp's output
+  const int ncol = max(0, min(kCCols, R - r0));   // columns: 0, 8 or 16
+  float acc[kCCols];
+#pragma unroll
+  for (int j = 0; j < kCCols; ++j) {
+    acc[j] = s_acc[((r0 - r_base) + j) * kCKS + lane];
+  }
+  if (lane >= ks || ncol == 0) return;
+  const size_t row = static_cast<size_t>(b) * k8 + k_base + lane;
+  if (FUSE) {
+    // Next chain state: bf16 hi | lo along the last axis, (nb, k8, 2R).
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) +
+                       row * (2 * R) + r0;
+#pragma unroll
+    for (int j0 = 0; j0 < kCCols; j0 += 8) {
+      if (j0 >= ncol) break;
+      unsigned h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned h0, l0, h1, l1;
+        split_rn(acc[j0 + 2 * i], h0, l0);
+        split_rn(acc[j0 + 2 * i + 1], h1, l1);
+        h[i] = h0 | (h1 << 16);
+        l[i] = l0 | (l1 << 16);
+      }
+      *reinterpret_cast<uint4*>(o + j0) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(o + R + j0) =
+          make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  } else {
+    float* o = reinterpret_cast<float*>(out) + row * R + r0;
+#pragma unroll
+    for (int j0 = 0; j0 < kCCols; j0 += 4) {
+      if (j0 >= ncol) break;
+      *reinterpret_cast<float4*>(o + j0) =
+          make_float4(acc[j0], acc[j0 + 1], acc[j0 + 2], acc[j0 + 3]);
+    }
+  }
 }
 
 // B1: CTA x owns output block x.
-template <bool SPLIT, bool FUSE>
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool SPLIT, bool FUSE, typename ColT, typename RowT>
+__global__ void __launch_bounds__(kThreads, 3)
 tmulti_kernel(const int* __restrict__ block_ptr,
-              const int* __restrict__ pair_chunk,
-              const __nv_bfloat16* __restrict__ tiles_t,
+              const int* __restrict__ pair_chunk, Compact tiles,
               const __nv_bfloat16* __restrict__ slabs,
               void* __restrict__ out, int C, int R, int k8) {
   const int b = blockIdx.x;
-  tmulti_block<SPLIT, FUSE>(block_ptr[b], block_ptr[b + 1], pair_chunk, 0,
-                            tiles_t, slabs, out, b, C, R, k8);
+  tmulti_block<SPLIT, FUSE, ColT, RowT>(block_ptr[b], block_ptr[b + 1],
+                                        pair_chunk, 0, tiles, slabs, out, b,
+                                        C, R, k8);
 }
 
 // B6: CTA x owns the x-th (phase, local block) in phase order. Row i of
 // `phases` is (pair_off, chunk_lo, first partial block, offset of the
 // phase's run bounds in block_ptr_ph); block_ptr_ph holds each phase's
 // nb_ph + 1 run bounds relative to its pair_off.
-template <bool SPLIT>
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool SPLIT, typename ColT, typename RowT>
+__global__ void __launch_bounds__(kThreads, 3)
 tmulti_phased_kernel(const int* __restrict__ phases, int n_phases,
                      const int* __restrict__ block_ptr_ph,
-                     const int* __restrict__ pair_chunk_ph,
-                     const __nv_bfloat16* __restrict__ tiles_t,
+                     const int* __restrict__ pair_chunk_ph, Compact tiles,
                      const __nv_bfloat16* __restrict__ slabs,
                      float* __restrict__ partials, int C, int R, int k8) {
   const int x = blockIdx.x;
@@ -373,9 +608,9 @@ tmulti_phased_kernel(const int* __restrict__ phases, int n_phases,
   const int pair_off = phases[4 * ph];
   const int chunk_lo = phases[4 * ph + 1];
   const int* bp = block_ptr_ph + phases[4 * ph + 3] + (x - phases[4 * ph + 2]);
-  tmulti_block<SPLIT, false>(pair_off + bp[0], pair_off + bp[1],
-                             pair_chunk_ph, chunk_lo, tiles_t, slabs,
-                             partials, x, C, R, k8);
+  tmulti_block<SPLIT, false, ColT, RowT>(pair_off + bp[0], pair_off + bp[1],
+                                         pair_chunk_ph, chunk_lo, tiles,
+                                         slabs, partials, x, C, R, k8);
 }
 
 // The dynamic shared-memory limit is a per-device attribute of each
@@ -396,40 +631,61 @@ cudaError_t set_smem_once(Kernel kernel, int smem,
   return cudaSuccess;
 }
 
+// f(ColT{}, RowT{}) for the compact plane's index widths: bit 0 of
+// `wide` is an int32 col_ptr (else uint16), bit 1 int16 rows (else
+// uint8).
+template <typename F>
+cudaError_t by_index_widths(int wide, F f) {
+  switch (wide) {
+    case 0: return f(uint16_t{}, uint8_t{});
+    case 1: return f(int{}, uint8_t{});
+    case 2: return f(uint16_t{}, int16_t{});
+    case 3: return f(int{}, int16_t{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool SPLIT, bool FUSE>
 cudaError_t launch_tmulti(const int* block_ptr, const int* pair_chunk,
-                          const __nv_bfloat16* tiles_t,
+                          Compact tiles, int wide,
                           const __nv_bfloat16* slabs, void* out, int nb,
                           int C, int R, int k8, cudaStream_t stream) {
-  constexpr int smem = tmulti_smem_bytes<SPLIT>();
-  static std::atomic<uint64_t> configured{0};  // bit d: device d is set
-  cudaError_t err =
-      set_smem_once(tmulti_kernel<SPLIT, FUSE>, smem, configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(nb, (k8 + kKS - 1) / kKS, (R + kRS - 1) / kRS);
-  tmulti_kernel<SPLIT, FUSE><<<grid, kThreads, smem, stream>>>(
-      block_ptr, pair_chunk, tiles_t, slabs, out, C, R, k8);
-  return cudaGetLastError();
+  return by_index_widths(wide, [&](auto col, auto row) {
+    using ColT = decltype(col);
+    using RowT = decltype(row);
+    static std::atomic<uint64_t> configured{0};  // bit d: device d is set
+    auto kernel = tmulti_kernel<SPLIT, FUSE, ColT, RowT>;
+    cudaError_t err =
+        set_smem_once(kernel, tmulti_smem_bytes<SPLIT>(kCMax), configured);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(nb, (k8 + kCKS - 1) / kCKS, (R + kCRS - 1) / kCRS);
+    kernel<<<grid, kThreads, tmulti_smem_bytes<SPLIT>(C), stream>>>(
+        block_ptr, pair_chunk, tiles, slabs, out, C, R, k8);
+    return cudaGetLastError();
+  });
 }
 
 template <bool SPLIT>
 cudaError_t launch_tmulti_phased(const int* phases, int n_phases,
                                  const int* block_ptr_ph,
-                                 const int* pair_chunk_ph,
-                                 const __nv_bfloat16* tiles_t,
-                                 const __nv_bfloat16* slabs, float* partials,
-                                 int n_partials, int C, int R, int k8,
-                                 cudaStream_t stream) {
-  constexpr int smem = tmulti_smem_bytes<SPLIT>();
-  static std::atomic<uint64_t> configured{0};
-  cudaError_t err = set_smem_once(tmulti_phased_kernel<SPLIT>, smem,
-                                  configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_partials, (k8 + kKS - 1) / kKS, (R + kRS - 1) / kRS);
-  tmulti_phased_kernel<SPLIT><<<grid, kThreads, smem, stream>>>(
-      phases, n_phases, block_ptr_ph, pair_chunk_ph, tiles_t, slabs,
-      partials, C, R, k8);
-  return cudaGetLastError();
+                                 const int* pair_chunk_ph, Compact tiles,
+                                 int wide, const __nv_bfloat16* slabs,
+                                 float* partials, int n_partials, int C,
+                                 int R, int k8, cudaStream_t stream) {
+  return by_index_widths(wide, [&](auto col, auto row) {
+    using ColT = decltype(col);
+    using RowT = decltype(row);
+    static std::atomic<uint64_t> configured{0};
+    auto kernel = tmulti_phased_kernel<SPLIT, ColT, RowT>;
+    cudaError_t err =
+        set_smem_once(kernel, tmulti_smem_bytes<SPLIT>(kCMax), configured);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(n_partials, (k8 + kCKS - 1) / kCKS, (R + kCRS - 1) / kCRS);
+    kernel<<<grid, kThreads, tmulti_smem_bytes<SPLIT>(C), stream>>>(
+        phases, n_phases, block_ptr_ph, pair_chunk_ph, tiles, slabs,
+        partials, C, R, k8);
+    return cudaGetLastError();
+  });
 }
 
 // ---- B3 / B4: natural-layout contraction ------------------------------
@@ -888,25 +1144,31 @@ cudaError_t launch_chunk_slabs(const void* v, void* out, int n_chunks, int C,
 
 extern "C" {
 
-// B1. block_ptr (nb + 1) and pair_chunk (P) int32; tiles_t (P, planes*C,
-// R) bf16; slabs (n_chunks, k8, planes*C) bf16; out (nb, k8, R) f32, or
-// (nb, k8, 2R) bf16 with fuse (split only). Requires C % 128 == 0, R % 8 == 0,
-// k8 % 8 == 0 and 16-byte aligned tiles_t (checked by the wrapper).
+// B1. block_ptr (nb + 1) and pair_chunk (P) int32; the compact plane
+// (nz_ptr, col_ptr, rows, vals; index widths `wide`, see by_index_widths)
+// of tiles_t (P, planes*C, R); slabs (n_chunks, k8, planes*C) bf16; out
+// (nb, k8, R) f32, or (nb, k8, 2R) bf16 with fuse (split only). Requires
+// C % 128 == 0, C <= 512, R % 8 == 0, k8 % 8 == 0 and 16-byte aligned
+// slabs (checked by the wrapper).
 int tmulti_launch(const void* block_ptr, const void* pair_chunk,
-                  const void* tiles_t, const void* slabs, void* out, int nb,
-                  int C, int R, int k8, int split, int fuse, void* stream) {
+                  const void* nz_ptr, const void* col_ptr, const void* rows,
+                  const void* vals, int wide, const void* slabs, void* out,
+                  int nb, int C, int R, int k8, int split, int fuse,
+                  void* stream) {
   const int* bp = static_cast<const int*>(block_ptr);
   const int* pc = static_cast<const int*>(pair_chunk);
-  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(tiles_t);
+  const Compact t{static_cast<const int*>(nz_ptr), col_ptr, rows, vals};
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(slabs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (split) {
-    err = fuse ? launch_tmulti<true, true>(bp, pc, t, s, out, nb, C, R, k8, st)
-               : launch_tmulti<true, false>(bp, pc, t, s, out, nb, C, R, k8,
-                                            st);
+    err = fuse ? launch_tmulti<true, true>(bp, pc, t, wide, s, out, nb, C, R,
+                                           k8, st)
+               : launch_tmulti<true, false>(bp, pc, t, wide, s, out, nb, C,
+                                            R, k8, st);
   } else if (!fuse) {
-    err = launch_tmulti<false, false>(bp, pc, t, s, out, nb, C, R, k8, st);
+    err = launch_tmulti<false, false>(bp, pc, t, wide, s, out, nb, C, R, k8,
+                                      st);
   } else {
     err = cudaErrorInvalidValue;  // the one-plane state is a plain cast
   }
@@ -916,26 +1178,27 @@ int tmulti_launch(const void* block_ptr, const void* pair_chunk,
 // B6. phases (n_phases, 4) int32 rows (pair_off, chunk_lo, first
 // partial, offset into block_ptr_ph); block_ptr_ph int32 run bounds
 // relative to each phase's pair_off; pair_chunk_ph (P) int32 phase-local;
-// tiles_t (P, planes*C, R) bf16 phase-major; slabs (n_chunks, k8,
-// planes*C) bf16; partials (n_partials, k8, R) f32. Same requirements as
-// B1.
+// the compact plane of the phase-major tiles_t (P, planes*C, R); slabs
+// (n_chunks, k8, planes*C) bf16; partials (n_partials, k8, R) f32. Same
+// requirements as B1.
 int tmulti_phased_launch(const void* phases, int n_phases,
                          const void* block_ptr_ph, const void* pair_chunk_ph,
-                         const void* tiles_t, const void* slabs,
-                         void* partials, int n_partials, int C, int R, int k8,
-                         int split, void* stream) {
+                         const void* nz_ptr, const void* col_ptr,
+                         const void* rows, const void* vals, int wide,
+                         const void* slabs, void* partials, int n_partials,
+                         int C, int R, int k8, int split, void* stream) {
   const int* ph = static_cast<const int*>(phases);
   const int* bp = static_cast<const int*>(block_ptr_ph);
   const int* pc = static_cast<const int*>(pair_chunk_ph);
-  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(tiles_t);
+  const Compact t{static_cast<const int*>(nz_ptr), col_ptr, rows, vals};
   const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(slabs);
   float* o = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      split ? launch_tmulti_phased<true>(ph, n_phases, bp, pc, t, s, o,
+      split ? launch_tmulti_phased<true>(ph, n_phases, bp, pc, t, wide, s, o,
                                          n_partials, C, R, k8, st)
-            : launch_tmulti_phased<false>(ph, n_phases, bp, pc, t, s, o,
-                                          n_partials, C, R, k8, st);
+            : launch_tmulti_phased<false>(ph, n_phases, bp, pc, t, wide, s,
+                                          o, n_partials, C, R, k8, st);
   return static_cast<int>(err);
 }
 

@@ -3,10 +3,10 @@ from .matrix import COO, CSR, ELL, BucketedELL
 from .reorder import (
     apply_symmetric_permutation, bandwidth, permute_rows, rcm_ordering,
 )
-from .windowed import WindowedPairs
+from .windowed import CompactTiles, WindowedPairs
 
 __all__ = [
     "BandedBlocks", "band_coverage", "COO", "CSR", "ELL", "BucketedELL",
-    "WindowedPairs", "apply_symmetric_permutation", "bandwidth",
-    "permute_rows", "rcm_ordering",
+    "WindowedPairs", "CompactTiles", "apply_symmetric_permutation",
+    "bandwidth", "permute_rows", "rcm_ordering",
 ]

@@ -9,11 +9,12 @@ block-ascending pair list (``tiles[p]``, ``pair_block[p]``,
 
 Everything here is host-side numpy and bit-identical to the JAX package
 on the same input: the cost-model tile search, the RCM ordering choice,
-the padded pair layout, the bf16 ``hi|lo`` split planes and the
-transposed planes ``tiles_t`` that the Hopper kernel B1
-(``ops/cuda_windowed.py::windowed_matmul_tmulti``) streams, and the
-phase-major layout (``phase_layout=True``, ``build_phase_layout``) of the
-phased kernel B6. The cost constants below are the JAX package's TPU v5e
+the padded pair layout, the bf16 ``hi|lo`` split planes, the transposed
+planes ``tiles_t`` and the phase-major layout (``phase_layout=True``,
+``build_phase_layout``). On the card the Hopper kernels B1
+(``ops/cuda_windowed.py::windowed_matmul_tmulti``) and B6 read
+``tiles_t``'s nonzeros only, as a ``CompactTiles`` plane that
+``WindowedPairs.to`` builds once per operand. The cost constants below are the JAX package's TPU v5e
 measurements, carried verbatim so the port routes exactly as the
 reference does; an H100 cost table is later work. bf16 host arrays are
 ``uint16`` bit patterns (``formats/matrix.py::to_tensor``).
@@ -29,7 +30,8 @@ import torch
 
 from .matrix import BucketedELL, CSR, ELL, array_dtype, cast, to_tensor
 
-__all__ = ["WindowedPairs", "windowed_cost_estimate", "windowed_wins",
+__all__ = ["WindowedPairs", "CompactTiles", "windowed_cost_estimate",
+           "windowed_wins",
            "build_dense_pairs", "build_phase_layout", "DEFAULT_CANDIDATES"]
 
 #: Default (R, C) tile-shape candidates for the build-time cost search.
@@ -275,6 +277,194 @@ def _host_bucketed(spill) -> Optional[BucketedELL]:
         row_perm=np.asarray(spill.row_perm),
         inv_row_perm=np.asarray(spill.inv_row_perm),
         shape=tuple(spill.shape))
+
+
+def _host_bits(x) -> np.ndarray:
+    """A dense plane as a host numpy array, bf16 as ``uint16`` bits."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
+    return _bf16_bits(x)
+
+
+def _as_torch(x, unsigned16: bool = False) -> torch.Tensor:
+    """A compact-plane array as a tensor where it lies: host numpy arrays
+    become CPU tensors (``uint16`` as ``int16`` bits when ``unsigned16``,
+    as ``torch.bfloat16`` otherwise)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if unsigned16 and x.dtype == np.uint16:
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
+    return to_tensor(x, "cpu")
+
+
+def _dtype_is(x, np_dtype, torch_dtype) -> bool:
+    """Whether a host array has ``np_dtype``, or a tensor ``torch_dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch_dtype
+    return x.dtype == np.dtype(np_dtype)
+
+
+def _signed16(x: torch.Tensor) -> torch.Tensor:
+    """Low 16 bits of an integer tensor as ``int16`` (two's complement)."""
+    x = x & 0xFFFF
+    return (x - ((x & 0x8000) << 1)).to(torch.int16)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactTiles:
+    """The nonzeros of a ``tiles_t``-shaped plane ``(P, planes * C, R)``:
+    the tile operand kernels B1 and B6 read on the card, where a
+    ``WindowedPairs`` copy keeps it in place of the dense ``tiles_t``
+    (``WindowedPairs.to``).
+
+    Entries are stored per tile, column-major by output column: pair,
+    then ``r``, then the contraction index ``c``, all ascending. An entry
+    is any ``(c, r)`` at which some plane's bit pattern is non-zero, so
+    ``to_dense`` gives the plane back bit for bit.
+
+    * ``pair_nz_ptr`` (P + 1) int32: the global offset of each pair's
+      first entry, so a run of pairs ``[a, b)`` is ``self[a:b]``, a slice
+      of this and of ``col_ptr`` over the same entries;
+    * ``col_ptr`` (P, R + 1): each column's entries within its pair,
+      ``uint16`` while ``C * R <= 65535``, else int32;
+    * ``rows`` (nnz,): ``c``, ``uint8`` for ``C <= 256``, else int16;
+    * ``vals`` (nnz,): with ``split`` the bf16 hi and lo bits packed into
+      one int32 (``hi | lo << 16``), so one 32-bit load brings both;
+      otherwise the plane's own values.
+
+    A host copy holds numpy arrays (bf16 values as ``uint16`` bits);
+    ``to(device)`` gives torch tensors (``uint16`` column offsets as
+    ``int16`` bits, bf16 values as ``torch.bfloat16``).
+    """
+
+    pair_nz_ptr: object
+    col_ptr: object
+    rows: object
+    vals: object
+    chunk_cols: int
+    split: bool
+
+    @classmethod
+    def from_dense(cls, tiles_t, split: bool) -> "CompactTiles":
+        """The compact plane of a dense ``tiles_t`` (numpy, bf16 as
+        ``uint16`` bits, or a tensor), built on the host."""
+        t = _host_bits(tiles_t)
+        P, CW, R = t.shape
+        C = CW // 2 if split else CW
+        if split and t.dtype != np.uint16:
+            raise ValueError(f"split planes are bf16 bits, got {t.dtype}")
+        bits = t.view(np.dtype(f"u{t.dtype.itemsize}"))
+        nz = (bits[:, :C] != 0) | (bits[:, C:] != 0) if split else bits != 0
+        flat = np.flatnonzero(nz.transpose(0, 2, 1))  # (p, r, c) ascending
+        if flat.size >= 2 ** 31:
+            raise ValueError(f"{flat.size} entries overflow int32 offsets")
+        pr, c = np.divmod(flat, C)
+        p, r = np.divmod(pr, R)
+        col_ptr = np.zeros((P, R + 1), np.int64)
+        col_ptr[:, 1:] = np.cumsum(
+            np.bincount(pr, minlength=P * R).reshape(P, R), axis=1)
+        pair_nz_ptr = np.zeros(P + 1, np.int32)
+        pair_nz_ptr[1:] = np.cumsum(col_ptr[:, -1])
+        if split:
+            vals = (bits[p, c, r].astype(np.uint32)
+                    | bits[p, C + c, r].astype(np.uint32) << 16).view(
+                        np.int32)
+        else:
+            vals = t[p, c, r]
+        return cls(
+            pair_nz_ptr=pair_nz_ptr,
+            col_ptr=col_ptr.astype(np.uint16 if C * R <= 65535 else np.int32),
+            rows=c.astype(np.uint8 if C <= 256 else np.int16),
+            vals=vals, chunk_cols=C, split=split)
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        """The dense plane's shape ``(P, planes * C, R)``."""
+        P, R1 = self.col_ptr.shape
+        return (P, (2 if self.split else 1) * self.chunk_cols, R1 - 1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dense plane's dtype (bf16 for split planes)."""
+        return torch.bfloat16 if self.split else array_dtype(self.vals)
+
+    @property
+    def device(self) -> torch.device:
+        if isinstance(self.vals, torch.Tensor):
+            return self.vals.device
+        return torch.device("cpu")
+
+    @property
+    def nnz(self) -> int:
+        return int(self.pair_nz_ptr[-1]) - int(self.pair_nz_ptr[0])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the four arrays (the whole entry arrays, also for a
+        slice of pairs)."""
+        return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+                   else x.nbytes for x in (self.pair_nz_ptr, self.col_ptr,
+                                           self.rows, self.vals))
+
+    @property
+    def wide(self) -> int:
+        """The kernels' index widths: bit 0 int32 ``col_ptr``, bit 1
+        int16 ``rows``."""
+        return (int(_dtype_is(self.col_ptr, np.int32, torch.int32))
+                | int(_dtype_is(self.rows, np.int16, torch.int16)) << 1)
+
+    def __getitem__(self, pairs: slice) -> "CompactTiles":
+        """Pairs ``[a, b)`` over the same entry arrays."""
+        a, b, step = pairs.indices(self.shape[0])
+        if step != 1:
+            raise ValueError("a compact plane slices only unit-step runs")
+        return dataclasses.replace(self, pair_nz_ptr=self.pair_nz_ptr[a:b + 1],
+                                   col_ptr=self.col_ptr[a:b])
+
+    def to(self, device) -> "CompactTiles":
+        device = torch.device(device)
+        return dataclasses.replace(
+            self, pair_nz_ptr=_as_torch(self.pair_nz_ptr).to(device),
+            col_ptr=_as_torch(self.col_ptr, unsigned16=True).to(device),
+            rows=_as_torch(self.rows).to(device),
+            vals=_as_torch(self.vals).to(device))
+
+    def to_dense(self):
+        """The dense plane ``(P, planes * C, R)``, where the arrays lie: a
+        tensor on their device, numpy (bf16 as ``uint16`` bits) on the
+        host."""
+        host = not isinstance(self.vals, torch.Tensor)
+        ptr = _as_torch(self.pair_nz_ptr).long()
+        cp = _as_torch(self.col_ptr, unsigned16=True).long()
+        if _dtype_is(self.col_ptr, np.uint16, torch.int16):
+            cp = cp & 0xFFFF
+        P, CW, R = self.shape
+        C, dev = self.chunk_cols, ptr.device
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        pr = torch.repeat_interleave(
+            torch.arange(P * R, device=dev), (cp[:, 1:] - cp[:, :-1]).reshape(-1))
+        p, r = pr // R, pr % R
+        c = _as_torch(self.rows)[lo:hi].long()
+        vals = _as_torch(self.vals)[lo:hi]
+        if self.split:
+            v = vals.long()
+            out = torch.zeros((P, CW, R), dtype=torch.int16, device=dev)
+            out[p, c, r] = _signed16(v)
+            out[p, C + c, r] = _signed16(v >> 16)
+            out = out.view(torch.bfloat16)
+        else:
+            out = torch.zeros((P, CW, R), dtype=vals.dtype, device=dev)
+            out[p, c, r] = vals
+        return _host_bits(out) if host else out
+
+
+def _compact(tiles_t, split: bool) -> CompactTiles:
+    if isinstance(tiles_t, CompactTiles):
+        return tiles_t
+    return CompactTiles.from_dense(tiles_t, split)
 
 
 def _pair_cost_s(R: int, C: int, itemsize: int, k_nominal: int,
@@ -560,7 +750,8 @@ class WindowedPairs:
     #: >2 = global tail pad only (the transposed U-pair kernel B1).
     pairs_per_step: int = 2
     #: Transposed planes for B1, built for ``pairs_per_step > 2``:
-    #: (P, 2C, R) bf16 hi/lo for f32 data, (P, C, R) otherwise.
+    #: (P, 2C, R) bf16 hi/lo for f32 data, (P, C, R) otherwise; a card
+    #: copy whose kernels read them holds their ``CompactTiles`` instead.
     #: PHASE-major order when ``phases`` is set (``build_phase_layout``):
     #: consumed by B6 with the ``_ph`` id arrays, never with
     #: ``pair_block``/``pair_chunk``.
@@ -590,6 +781,8 @@ class WindowedPairs:
             return array_dtype(self.tiles)
         if self.split:
             return torch.float32
+        if isinstance(self.tiles_t, CompactTiles):
+            return self.tiles_t.dtype
         return array_dtype(self.tiles_t)
 
     @property
@@ -658,8 +851,11 @@ class WindowedPairs:
         ``None``, the natural planes no kernel of its route reads:
         ``tiles``/``tiles_split`` where the kernels read only ``tiles_t``
         (U>2, ``R % 128 == 0``), ``tiles`` of an f32 U=2 operand (its
-        kernel B3 reads ``tiles_split``). The plain path rebuilds its
-        tiles from the planes kept when a route needs them.
+        kernel B3 reads ``tiles_split``). In the first case it holds, in
+        place of the dense ``tiles_t``, its ``CompactTiles`` (built here
+        on the host, once per operand): B1 and B6 read only that. The
+        plain path rebuilds its tiles from the planes kept when a route
+        needs them. The host arrays are left as they are.
 
         Moving a U=2 operand to a CUDA device audits, on the host arrays,
         the two-pair kernels' contract (pairs ``2s`` and ``2s+1`` share a
@@ -684,12 +880,18 @@ class WindowedPairs:
             dropped = ("tiles",)
         else:
             dropped = ()
+        fields = {f: None if f in dropped else to_tensor(getattr(self, f),
+                                                         device)
+                  for f in self._ARRAYS if f != "tiles_t"}
+        tiles_t = self.tiles_t
+        if kernel_only or isinstance(tiles_t, CompactTiles):
+            fields["tiles_t"] = _compact(tiles_t, self.split).to(device)
+        else:
+            fields["tiles_t"] = to_tensor(tiles_t, device)
         return dataclasses.replace(
             self,
             spill=None if self.spill is None else self.spill.to(device),
-            **{f: None if f in dropped else to_tensor(getattr(self, f),
-                                                      device)
-               for f in self._ARRAYS})
+            **fields)
 
     # ---- padded-permuted-space iteration protocol --------------------
     def encode(self, v: torch.Tensor) -> torch.Tensor:

@@ -120,8 +120,8 @@ def load_library() -> ctypes.CDLL:
                 f"{CSRC_DIR}/*.cu and have no fallback")
         lib = ctypes.CDLL(_build(nvcc))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tmulti_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                      i32, i32, i32, ptr]
+        lib.tmulti_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr,
+                                      ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.tmulti_launch.restype = i32
         lib.chunk_slabs_launch.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
         lib.chunk_slabs_launch.restype = i32
@@ -129,8 +129,8 @@ def load_library() -> ctypes.CDLL:
                                     i32, ptr]
         lib.band_launch.restype = i32
         lib.tmulti_phased_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr,
-                                             ptr, i32, i32, i32, i32, i32,
-                                             ptr]
+                                             ptr, ptr, i32, ptr, ptr, i32,
+                                             i32, i32, i32, i32, ptr]
         lib.tmulti_phased_launch.restype = i32
         lib.natural_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                        i32, i32, i32, ptr]

@@ -6,7 +6,8 @@ Five kernels from ``csrc/windowed_kernels.cu``:
 * **B1** ``windowed_matmul_tmulti`` — the transposed-state U-pair
   contraction (``_kernel_tmulti`` on the TPU): slabs in, ``(nb, k8, R)``
   f32 out, or the next chain state ``(nb, k8, 2R)`` bf16 ``[hi | lo]``
-  with ``fuse_resplit``.
+  with ``fuse_resplit``. The kernel reads the tiles' nonzeros only, a
+  ``CompactTiles`` plane (``formats/windowed.py``).
 * **B2** ``chunk_slabs`` — the per-iterate relayout ``(pad_rows, k) ->
   (n_chunks, k, C)``, with ``split`` the bf16 ``[hi | lo]`` planes
   ``(n_chunks, k, 2C)``.
@@ -18,12 +19,16 @@ Five kernels from ``csrc/windowed_kernels.cu``:
 * **B6** ``windowed_matmul_tmulti_phased`` — B1's contraction over a
   phase-major pair list (``_kernel_tmulti_resident``), per-phase partials
   added in phase order; B1 on each phase's slices when the window
-  overflows the reference's budget (the streamed route).
+  overflows the reference's budget (the streamed route). Same compact
+  tile operand as B1.
 
 Each wrapper takes its plain version (``*_plain``, same module) for a
 tensor on the CPU and launches its kernel for a CUDA tensor — there is no
 fallback from one to the other — and counts its kernel launches in
-``<wrapper>.launches``. ``spmm_windowed_cuda`` is the JAX package's
+``<wrapper>.launches``. The plain versions of B1 and B6 mirror the JAX
+package on dense tiles (a ``CompactTiles`` operand on the CPU is
+densified first); their kernels take only the compact plane, and a dense
+``tiles_t`` off the CPU raises. ``spmm_windowed_cuda`` is the JAX package's
 ``spmm_windowed_pallas``: one-shot SpMM through B2 then B1, B6, B3 or B4.
 """
 
@@ -34,7 +39,9 @@ import itertools
 
 import torch
 
-from ..formats.windowed import RESIDENT_SLAB_VMEM_BYTES, WindowedPairs
+from ..formats.windowed import (
+    RESIDENT_SLAB_VMEM_BYTES, CompactTiles, WindowedPairs,
+)
 from ._kernel_lib import check_launch, load_library
 
 __all__ = ["chunk_slabs", "chunk_slabs_plain", "windowed_matmul_tmulti",
@@ -174,6 +181,64 @@ def windowed_matmul_tmulti_plain(pair_block, pair_chunk, tiles_t, slabs, *,
     return out
 
 
+def _dense(tiles_t):
+    """The dense plane a plain version reads."""
+    if isinstance(tiles_t, CompactTiles):
+        return tiles_t.to_dense()
+    return tiles_t
+
+
+#: Widest chunk the B1 / B6 kernels stage (``kCMax`` in the source).
+_TMULTI_MAX_C = 512
+
+
+def _compact_operand(name, tiles_t, slabs, *, C, R, k8, split) -> tuple:
+    """The B1 / B6 kernel's tile operand as its launch arguments (the
+    four arrays' data pointers and the index widths), checked: a
+    ``CompactTiles`` on the slabs' CUDA device. A dense ``tiles_t`` there
+    raises: the kernels read the compact plane, which ``WindowedPairs.to``
+    builds once per operand, and nothing compacts per call. The plane's
+    arrays are checked once, when a plane first reaches a kernel; the
+    arguments are kept on it."""
+    if not isinstance(tiles_t, CompactTiles):
+        raise ValueError(
+            f"no kernel for a dense tiles_t on {slabs.device}: {name} reads "
+            "the compact plane (CompactTiles.from_dense, which "
+            "WindowedPairs.to builds once per operand)")
+    _on_kernel_device(slabs)
+    cached = tiles_t.__dict__.get("_kernel_args")  # frozen: no setattr
+    if cached is None or cached[0] != slabs.device:
+        arrays = (tiles_t.pair_nz_ptr, tiles_t.col_ptr, tiles_t.rows,
+                  tiles_t.vals)
+        _require(all(x.device == slabs.device and x.is_contiguous()
+                     for x in arrays),
+                 f"{name} kernel: the compact plane must lie on "
+                 f"{slabs.device}, contiguous")
+        cached = (slabs.device, *(x.data_ptr() for x in arrays),
+                  tiles_t.wide)
+        tiles_t.__dict__["_kernel_args"] = cached
+    _require(tiles_t.split == split,
+             f"{name} kernel: a compact plane with split={tiles_t.split} "
+             f"given split={split}")
+    _require(slabs.dtype == torch.bfloat16 and slabs.is_contiguous()
+             and slabs.data_ptr() % 16 == 0,
+             f"{name} kernel: slabs must be a contiguous, 16-byte aligned "
+             f"bf16 tensor, got {slabs.dtype}")
+    _require(C % 128 == 0 and C <= _TMULTI_MAX_C and R % 8 == 0
+             and k8 % 8 == 0,
+             f"{name} kernel needs C % 128 == 0, C <= {_TMULTI_MAX_C}, "
+             f"R % 8 == 0 and k8 % 8 == 0, got C={C}, R={R}, k8={k8}")
+    return cached[1:]
+
+
+def _int32_on(name, dev, **arrays) -> None:
+    for arg, x in arrays.items():
+        _require(x.device == dev and x.dtype == torch.int32
+                 and x.is_contiguous(),
+                 f"{name} kernel: {arg} must be a contiguous int32 tensor on "
+                 f"{dev}, got {x.dtype} on {x.device}")
+
+
 def windowed_matmul_tmulti(pair_block, pair_chunk, block_ptr, tiles_t,
                            slabs, *, nb: int, pairs_per_step: int = 8,
                            split: bool = True, fuse_resplit: bool = False):
@@ -183,31 +248,25 @@ def windowed_matmul_tmulti(pair_block, pair_chunk, block_ptr, tiles_t,
     split).
 
     ``tiles_t``: (P, 2C, R) bf16 hi/lo planes with ``split``, else
-    (P, C, R). Pairs block-ascending, every block present,
-    ``P % pairs_per_step == 0``; ``block_ptr`` (nb + 1) bounds each
-    block's pair run (the kernel's work list). ``slabs``: (n_chunks, k8,
-    2C) bf16 from ``chunk_slabs(split=True)``, or (n_chunks, k8, C)."""
+    (P, C, R), dense (plain version, CPU) or as its ``CompactTiles``
+    (the kernel on CUDA; densified on the CPU). Pairs block-ascending,
+    every block present, ``P % pairs_per_step == 0``; ``block_ptr``
+    (nb + 1) bounds each block's pair run (the kernel's work list).
+    ``slabs``: (n_chunks, k8, 2C) bf16 from ``chunk_slabs(split=True)``,
+    or (n_chunks, k8, C)."""
     C, R, k8 = _tmulti_checks(pair_block, tiles_t, slabs,
                               pairs_per_step=pairs_per_step, split=split,
                               fuse_resplit=fuse_resplit)
-    if not _on_kernel_device(slabs):
+    if slabs.device.type == "cpu":
         return windowed_matmul_tmulti_plain(
-            pair_block, pair_chunk, tiles_t, slabs, nb=nb, split=split,
-            fuse_resplit=fuse_resplit)
+            pair_block, pair_chunk, _dense(tiles_t), slabs, nb=nb,
+            split=split, fuse_resplit=fuse_resplit)
+    plane = _compact_operand("windowed_matmul_tmulti", tiles_t, slabs, C=C,
+                             R=R, k8=k8, split=split)
     dev = slabs.device
-    for name, x, dt in (("tiles_t", tiles_t, torch.bfloat16),
-                        ("slabs", slabs, torch.bfloat16),
-                        ("pair_chunk", pair_chunk, torch.int32),
-                        ("block_ptr", block_ptr, torch.int32)):
-        _require(x.device == dev and x.dtype == dt and x.is_contiguous(),
-                 f"windowed_matmul_tmulti kernel: {name} must be a "
-                 f"contiguous {dt} tensor on {dev}, got {x.dtype} on "
-                 f"{x.device}")
+    _int32_on("windowed_matmul_tmulti", dev, pair_chunk=pair_chunk,
+              block_ptr=block_ptr)
     _require(block_ptr.shape[0] == nb + 1, "block_ptr length != nb + 1")
-    _require(C % 128 == 0 and R % 8 == 0,
-             f"windowed_matmul_tmulti kernel needs C % 128 == 0 and "
-             f"R % 8 == 0, got C={C}, R={R}")
-    _require(tiles_t.data_ptr() % 16 == 0, "tiles_t must be 16-byte aligned")
     if fuse_resplit and not split:
         # The one-plane chain state is a bf16 cast of the f32 result (the
         # kernel's fused epilogue writes the split [hi | lo] state).
@@ -220,7 +279,7 @@ def windowed_matmul_tmulti(pair_block, pair_chunk, block_ptr, tiles_t,
         out = torch.empty((nb, k8, R), dtype=torch.float32, device=dev)
     if out.numel():
         err = load_library().tmulti_launch(
-            block_ptr.data_ptr(), pair_chunk.data_ptr(), tiles_t.data_ptr(),
+            block_ptr.data_ptr(), pair_chunk.data_ptr(), *plane,
             slabs.data_ptr(), out.data_ptr(), nb, C, R, k8, int(split),
             int(fuse_resplit), _stream(slabs))
         check_launch("windowed_matmul_tmulti", err)
@@ -282,12 +341,14 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
     build_phase_layout``): per phase ``(pair_off, n_pairs, chunk_lo,
     block_lo, nb_ph)``, phase-local block and chunk ids
     (``pair_block_ph``, ``pair_chunk_ph``), run bounds ``block_ptr_ph``
-    (``nb_ph + 1`` per phase, relative to ``pair_off``). Resident route:
-    one B6 launch writes every phase's block-range partial, in phase
-    order; streamed route (``force_streamed``, or a chunk window past the
-    reference's ``RESIDENT_SLAB_VMEM_BYTES`` at this ``k8``, the gate the
-    reference computes): one B1 launch per phase on its slices. The
-    partials are added in phase order either way."""
+    (``nb_ph + 1`` per phase, relative to ``pair_off``). ``tiles_t`` is
+    dense (plain version, CPU) or its ``CompactTiles`` (the kernels).
+    Resident route: one B6 launch writes every phase's block-range
+    partial, in phase order; streamed route (``force_streamed``, or a
+    chunk window past the reference's ``RESIDENT_SLAB_VMEM_BYTES`` at
+    this ``k8``, the gate the reference computes): one B1 launch per
+    phase on its slices. The partials are added in phase order either
+    way."""
     _, C2, R = tiles_t.shape
     C = C2 // 2 if split else C2
     k8 = slabs.shape[1]
@@ -298,10 +359,12 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
     _require(slabs.shape[2] == slab_w,
              f"slab width {slabs.shape[2]} != expected {slab_w} "
              f"(split={split})")
-    if not _on_kernel_device(slabs):
+    if slabs.device.type == "cpu":
         return windowed_matmul_tmulti_phased_plain(
-            pair_block_ph, pair_chunk_ph, tiles_t, slabs, nb=nb,
+            pair_block_ph, pair_chunk_ph, _dense(tiles_t), slabs, nb=nb,
             phases=phases, split=split)
+    plane = _compact_operand("windowed_matmul_tmulti_phased", tiles_t,
+                             slabs, C=C, R=R, k8=k8, split=split)
     window_bytes = (min(chunks_per_phase, slabs.shape[0]) * k8 * slab_w
                     * slabs.element_size())
     if force_streamed or window_bytes > RESIDENT_SLAB_VMEM_BYTES:
@@ -309,27 +372,16 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
         for off, n, chunk_lo, _, nb_ph in phases:
             parts.append(windowed_matmul_tmulti(
                 pair_block_ph[off:off + n], pair_chunk_ph[off:off + n],
-                block_ptr_ph[bp_off:bp_off + nb_ph + 1],
-                tiles_t[off:off + n], slabs[chunk_lo:], nb=nb_ph,
-                pairs_per_step=pairs_per_step, split=split))
+                block_ptr_ph[bp_off:bp_off + nb_ph + 1], tiles_t[off:off + n],
+                slabs[chunk_lo:], nb=nb_ph, pairs_per_step=pairs_per_step,
+                split=split))
             bp_off += nb_ph + 1
         return _combine_phases(parts, phases, nb)
     dev = slabs.device
-    for name, x, dt in (("tiles_t", tiles_t, torch.bfloat16),
-                        ("slabs", slabs, torch.bfloat16),
-                        ("pair_chunk_ph", pair_chunk_ph, torch.int32),
-                        ("block_ptr_ph", block_ptr_ph, torch.int32)):
-        _require(x.device == dev and x.dtype == dt and x.is_contiguous(),
-                 f"windowed_matmul_tmulti_phased kernel: {name} must be a "
-                 f"contiguous {dt} tensor on {dev}, got {x.dtype} on "
-                 f"{x.device}")
-    _require(C % 128 == 0 and R % 8 == 0,
-             f"windowed_matmul_tmulti_phased kernel needs C % 128 == 0 and "
-             f"R % 8 == 0, got C={C}, R={R}")
+    _int32_on("windowed_matmul_tmulti_phased", dev,
+              pair_chunk_ph=pair_chunk_ph, block_ptr_ph=block_ptr_ph)
     _require(block_ptr_ph.shape[0] == sum(ph[4] + 1 for ph in phases),
              "block_ptr_ph length != sum of nb_ph + 1 over the phases")
-    _require(tiles_t.data_ptr() % 16 == 0 and slabs.data_ptr() % 16 == 0,
-             "tiles_t and slabs must be 16-byte aligned")
     table = _phase_table(tuple(phases), dev)
     n_partials = sum(ph[4] for ph in phases)
     partials = torch.empty((n_partials, k8, R), dtype=torch.float32,
@@ -337,7 +389,7 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
     if partials.numel():
         err = load_library().tmulti_phased_launch(
             table.data_ptr(), len(phases), block_ptr_ph.data_ptr(),
-            pair_chunk_ph.data_ptr(), tiles_t.data_ptr(), slabs.data_ptr(),
+            pair_chunk_ph.data_ptr(), *plane, slabs.data_ptr(),
             partials.data_ptr(), n_partials, C, R, k8, int(split),
             _stream(slabs))
         check_launch("windowed_matmul_tmulti_phased", err)

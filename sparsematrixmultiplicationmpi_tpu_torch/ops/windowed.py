@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..formats.windowed import KPAD_MIN_K, WindowedPairs
+from ..formats.windowed import KPAD_MIN_K, CompactTiles, WindowedPairs
 from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
@@ -59,9 +59,9 @@ def _plain_pairs(wp: WindowedPairs):
     the operand's own block-major pairs, or, in a card copy that holds
     only the kernels' planes, tiles rebuilt from them (exact for one
     plane; hi + lo, within 2**-17 relative of the f32 tile, for split
-    planes, the precision the kernels use). A phase-major ``tiles_t``
-    comes with its pairs' global block and chunk ids; its dummy tiles
-    are zero."""
+    planes, the precision the kernels use; a ``CompactTiles`` plane
+    densified first). A phase-major ``tiles_t`` comes with its pairs'
+    global block and chunk ids; its dummy tiles are zero."""
     C = wp.chunk_cols
     if wp.tiles is not None:
         return wp.tiles, wp.pair_block, wp.pair_chunk
@@ -70,6 +70,8 @@ def _plain_pairs(wp: WindowedPairs):
         return (t[..., :C].to(torch.float32) + t[..., C:].to(torch.float32),
                 wp.pair_block, wp.pair_chunk)
     t = wp.tiles_t
+    if isinstance(t, CompactTiles):
+        t = t.to_dense()
     if wp.split:
         t = t[:, :C].to(torch.float32) + t[:, C:].to(torch.float32)
     t = t.transpose(1, 2)

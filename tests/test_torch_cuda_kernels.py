@@ -24,7 +24,7 @@ from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
     COO, ELL, BucketedELL,
 )
 from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
-    WindowedPairs, _phase_block_ptr, _phase_fields,
+    CompactTiles, WindowedPairs, _phase_block_ptr, _phase_fields,
 )
 from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
     banded_csr, fem3d_csr, generate_fat_vector, powerlaw_csr, random_csr,
@@ -67,6 +67,13 @@ def _wp(csr, *, U, R, C=128, reorder=None):
     return wp
 
 
+def _compact(host, dev):
+    """The B1 / B6 kernels' operand for a host ``WindowedPairs``: its
+    ``tiles_t`` as a ``CompactTiles`` on ``dev`` (what ``to`` keeps on a
+    card for an ``R % 128 == 0`` operand; built here for the others)."""
+    return CompactTiles.from_dense(host.tiles_t, host.split).to(dev)
+
+
 def _slabs(wp, k, dev, seed):
     v = generate_fat_vector(wp.shape[1], k, seed=seed).astype(np.float32)
     v_p = wp.encode(torch.from_numpy(v).to(dev)).contiguous()
@@ -106,10 +113,11 @@ def test_chunk_slabs_bf16_plain_mode(cuda):
 @pytest.mark.parametrize("U", [4, 8, 16])
 def test_tmulti_matches_plain(cuda, U):
     csr = fem3d_csr(256, 4096, seed=0).astype(np.float32)
-    wp = _wp(csr, U=U, R=16).to(cuda)
+    host = _wp(csr, U=U, R=16)
+    wp, ct = host.to(cuda), _compact(host, cuda)
     _, _, slabs = _slabs(wp, 16, cuda, seed=1)
     got = cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
+        wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs,
         nb=wp.n_blocks, pairs_per_step=U)
     want = cw.windowed_matmul_tmulti_plain(
         wp.pair_block, wp.pair_chunk, wp.tiles_t, slabs, nb=wp.n_blocks)
@@ -119,7 +127,7 @@ def test_tmulti_matches_plain(cuda, U):
     _assert_b1_close(got, want, cond)
     # The fused epilogue is the exact bf16 split of the same f32 sum.
     fused = cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
+        wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs,
         nb=wp.n_blocks, pairs_per_step=U, fuse_resplit=True)
     assert torch.equal(fused.view(torch.int16),
                        cw.resplit_slabs(got).view(torch.int16))
@@ -127,13 +135,13 @@ def test_tmulti_matches_plain(cuda, U):
 
 def test_tmulti_spans_blocks_mid_step(cuda):
     csr = fem3d_csr(512, 8192, seed=2).astype(np.float32)
-    wp = _wp(csr, U=8, R=8)
-    assert (np.diff(wp.block_ptr) % 8 != 0).any()
-    wp = wp.to(cuda)
+    host = _wp(csr, U=8, R=8)
+    assert (np.diff(host.block_ptr) % 8 != 0).any()
+    wp = host.to(cuda)
     v, v_p, slabs = _slabs(wp, 16, cuda, seed=3)
     got = cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
-        nb=wp.n_blocks, pairs_per_step=8)
+        wp.pair_block, wp.pair_chunk, wp.block_ptr, _compact(host, cuda),
+        slabs, nb=wp.n_blocks, pairs_per_step=8)
     computed = got.transpose(1, 2).reshape(wp.n_blocks * 8, 16)
     out = wp.decode(_finish(wp, computed, v_p))  # + the spill, if any
     ref = spmm_host_f64(csr, v)
@@ -143,23 +151,140 @@ def test_tmulti_spans_blocks_mid_step(cuda):
 
 def test_tmulti_empty_run_writes_zeros(cuda):
     csr = fem3d_csr(256, 4096, seed=0).astype(np.float32)
-    wp = _wp(csr, U=8, R=16).to(cuda)
+    host = _wp(csr, U=8, R=16)
+    wp = host.to(cuda)
     _, _, slabs = _slabs(wp, 16, cuda, seed=4)
     bp = wp.block_ptr.clone()
     bp[1] = bp[0]  # block 0's run becomes empty
     out = cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, bp, wp.tiles_t, slabs,
+        wp.pair_block, wp.pair_chunk, bp, _compact(host, cuda), slabs,
         nb=wp.n_blocks, pairs_per_step=8)
     assert torch.count_nonzero(out[0]) == 0
 
 
+def _hazard_operand(C, R, split, seed):
+    """A B1 operand built to hit the compact plane's edge cases: blocks
+    with empty runs (1 and 4), a tile with no entries, a fully dense tile
+    (at C = R = 256 its C * R entries need int32 column offsets, at
+    C = 512 the contraction index int16), a full column (C entries in one
+    r), a -0.0 entry, and ~2 % of the other positions. Returns
+    ``(pair_block, pair_chunk, block_ptr, tiles_t, nb, n_chunks)`` on the
+    host; ``tiles_t`` bf16 bits, hi | lo planes with ``split``."""
+    rng = np.random.default_rng(seed)
+    nb, n_chunks, P = 6, 5, 16
+    pb = np.sort(rng.choice([0, 2, 3, 5], size=P)).astype(np.int32)
+    pc = rng.integers(0, n_chunks, P).astype(np.int32)
+    bp = np.searchsorted(pb, np.arange(nb + 1)).astype(np.int32)
+    x = rng.uniform(-1, 1, (P, C, R)).astype(np.float32)
+    keep = rng.random((P, C, R)) < 0.02
+    keep[0] = True            # fully dense
+    keep[1] = False           # no entries
+    keep[2, :, R - 1] = True  # a full column
+    x = np.where(keep, x, np.float32(0))
+    x[3, 0, 0] = -0.0
+    t = torch.from_numpy(x)
+    hi = t.to(torch.bfloat16)
+    planes = [hi, (t - hi.float()).to(torch.bfloat16)] if split else [hi]
+    tiles_t = torch.cat(planes, dim=1)
+    return pb, pc, bp, tiles_t, nb, n_chunks
+
+
+#: Every hazard of the compact plane against the plain version: index
+#: widths (uint16 / int32 column offsets, uint8 / int16 rows), R = 8 (one
+#: warp's half), R = 256 (two column slices), k8 below a warp, at one
+#: and past one k8 slice, split planes and one plane.
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one-plane"])
+@pytest.mark.parametrize("k8", [8, 16, 32, 64])
+@pytest.mark.parametrize("C,R", [(128, 128), (128, 8), (256, 256),
+                                 (512, 128)])
+def test_tmulti_compact_hazards(cuda, C, R, k8, split):
+    pb, pc, bp, tiles_t, nb, n_chunks = _hazard_operand(C, R, split,
+                                                        seed=C + R + k8)
+    ct = CompactTiles.from_dense(tiles_t, split)
+    assert ct.wide == (int(C * R > 65535) | int(C > 256) << 1)
+    np.testing.assert_array_equal(
+        ct.to_dense(), tiles_t.view(torch.int16).numpy().view(np.uint16))
+    ct = ct.to(cuda)
+    pb, pc, bp = (torch.from_numpy(a).to(cuda) for a in (pb, pc, bp))
+    dense = tiles_t.to(cuda)
+    v = torch.from_numpy(np.random.default_rng(k8).uniform(
+        -50, 50, (n_chunks * C, k8)).astype(np.float32)).to(cuda)
+    slabs = (cw.chunk_slabs(v, C=C, split=True) if split else
+             cw.chunk_slabs(v.to(torch.bfloat16), C=C, split=False))
+    kw = dict(nb=nb, pairs_per_step=8, split=split)
+    cw.reset_launch_counts()
+    got = cw.windowed_matmul_tmulti(pb, pc, bp, ct, slabs, **kw)
+    assert cw.launch_counts() == _counts(B1=1)
+    want = cw.windowed_matmul_tmulti_plain(pb, pc, dense, slabs, nb=nb,
+                                           split=split)
+    cond = cw.windowed_matmul_tmulti_plain(pb, pc, dense.abs(), slabs.abs(),
+                                           nb=nb, split=split)
+    torch.cuda.synchronize()
+    _assert_b1_close(got, want, cond)
+    assert torch.count_nonzero(got[1]) == torch.count_nonzero(got[4]) == 0
+    if split and k8 % 16 == 0:
+        fused = cw.windowed_matmul_tmulti(pb, pc, bp, ct, slabs,
+                                          fuse_resplit=True, **kw)
+        assert torch.equal(fused.view(torch.int16),
+                           cw.resplit_slabs(got).view(torch.int16))
+
+
+def test_dense_tiles_on_the_card_raise(cuda):
+    pb, pc, bp, tiles_t, nb, _ = _hazard_operand(128, 128, True, seed=0)
+    pb, pc, bp = (torch.from_numpy(a).to(cuda) for a in (pb, pc, bp))
+    slabs = torch.zeros((5, 16, 256), dtype=torch.bfloat16, device=cuda)
+    cw.reset_launch_counts()
+    with pytest.raises(ValueError, match="dense tiles_t"):
+        cw.windowed_matmul_tmulti(pb, pc, bp, tiles_t.to(cuda), slabs, nb=nb)
+    phases = ((0, 16, 0, 0, nb),)
+    with pytest.raises(ValueError, match="dense tiles_t"):
+        cw.windowed_matmul_tmulti_phased(
+            pb, pc, bp, tiles_t.to(cuda), slabs, nb=nb, phases=phases,
+            chunks_per_phase=5, pairs_per_step=8)
+    assert cw.launch_counts() == _counts()
+
+
+def _csr_product(csr, v):
+    """``csr @ v`` summing the stored entries only (scipy), so a
+    non-finite ``v[j]`` reaches just the rows that hold column j."""
+    import scipy.sparse
+
+    a = scipy.sparse.csr_matrix(
+        (np.asarray(csr.values, np.float64), csr.col_indices, csr.row_ptr),
+        shape=csr.shape)
+    return a @ v.astype(np.float64)
+
+
+def test_tmulti_nonfinite_v_reaches_only_its_entries(cuda):
+    """The port's divergence from the reference (ROADMAP C): the compact
+    kernel multiplies no stored zero, so an Inf or NaN in ``v`` makes
+    non-finite exactly the rows a CSR product does, where the dense-tile
+    plain version (and the TPU kernel) spread it over whole tiles."""
+    csr = banded_csr(512, 24, 8, seed=4).astype(np.float32)
+    wp = _wp(csr, U=8, R=128).to(cuda)
+    v = generate_fat_vector(512, 16, seed=9).astype(np.float32)
+    v[100, 3], v[300, 7], v[301, 7] = np.inf, np.nan, -np.inf
+    cw.reset_launch_counts()
+    out = spmm_windowed(wp, torch.from_numpy(v).to(cuda)).cpu().numpy()
+    assert cw.launch_counts() == _counts(B1=1, B2=1)
+    ref = _csr_product(csr, v)
+    bad = ~np.isfinite(ref)
+    assert bad.any() and bad.sum() < bad.size
+    np.testing.assert_array_equal(~np.isfinite(out), bad)
+    err = np.abs(out[~bad] - ref[~bad]).max() / np.abs(ref[~bad]).max()
+    assert err < 5e-3
+    plain = spmm_windowed(wp.to("cpu"), torch.from_numpy(v)).numpy()
+    assert (~np.isfinite(plain)).sum() > bad.sum()
+
+
 def test_kernels_count_launches(cuda):
     csr = fem3d_csr(256, 4096, seed=0).astype(np.float32)
-    wp = _wp(csr, U=8, R=16).to(cuda)
+    host = _wp(csr, U=8, R=16)
+    wp, ct = host.to(cuda), _compact(host, cuda)
     cw.reset_launch_counts()
     _, _, slabs = _slabs(wp, 16, cuda, seed=5)
     cw.windowed_matmul_tmulti(
-        wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_t, slabs,
+        wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs,
         nb=wp.n_blocks, pairs_per_step=8)
     assert cw.launch_counts() == _counts(B1=1, B2=1)
 
@@ -169,7 +294,13 @@ def test_card_copy_holds_only_what_its_route_reads(cuda):
     host = _wp(csr, U=8, R=128)
     wp = host.to(cuda)
     assert wp.tiles is None and wp.tiles_split is None
-    assert wp.tiles_t.is_cuda and wp.split and wp.n_pairs == host.n_pairs
+    # The kernels read the compact plane, which stands in for tiles_t.
+    assert isinstance(wp.tiles_t, CompactTiles)
+    assert wp.tiles_t.device == cuda and wp.split
+    assert wp.n_pairs == host.n_pairs
+    np.testing.assert_array_equal(
+        wp.tiles_t.to_dense().cpu().view(torch.int16).numpy().view(
+            np.uint16), host.tiles_t)
     # R % 128 != 0: the card runs the plain path on the natural planes.
     r16 = _wp(fem3d_csr(256, 4096, seed=0).astype(np.float32), U=8,
               R=16).to(cuda)
@@ -475,13 +606,37 @@ def test_phased_matches_plain(cuda, streamed, multi, dtype, k):
     expect = (_counts(B1=len(wp.phases)) if streamed
               else _counts(B6=1))
     assert cw.launch_counts() == expect
+    dense = wp.tiles_t.to_dense()
     want = cw.windowed_matmul_tmulti_phased_plain(
-        wp.pair_block_ph, wp.pair_chunk_ph, wp.tiles_t, slabs, **kw)
+        wp.pair_block_ph, wp.pair_chunk_ph, dense, slabs, **kw)
     cond = cw.windowed_matmul_tmulti_phased_plain(
-        wp.pair_block_ph, wp.pair_chunk_ph, wp.tiles_t.abs(), slabs.abs(),
-        **kw)
+        wp.pair_block_ph, wp.pair_chunk_ph, dense.abs(), slabs.abs(), **kw)
     torch.cuda.synchronize()
     _assert_b1_close(got, want, cond)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_phased_resident_equals_streamed_bitwise(cuda, dtype):
+    """B6 and B1 per phase run one device function on one compact plane
+    (slices of it per phase), so the two routes agree bit for bit."""
+    wp = _phased(fem3d_csr(1024, 16384, seed=11).astype(np.float32),
+                 multi=True)
+    if dtype == "bfloat16":
+        wp = wp.astype(torch.bfloat16)
+    wp = wp.to(cuda)
+    assert isinstance(wp.tiles_t, CompactTiles)
+    v = torch.from_numpy(generate_fat_vector(1024, 32, seed=2).astype(
+        np.float32)).to(cuda)
+    v_p = wp.encode(v if wp.split else v.to(torch.bfloat16)).contiguous()
+    slabs = cw.chunk_slabs(v_p, C=128, split=wp.split)
+    args = (wp.pair_block_ph, wp.pair_chunk_ph, wp.block_ptr_ph, wp.tiles_t,
+            slabs)
+    kw = dict(nb=wp.n_blocks, phases=wp.phases, split=wp.split,
+              chunks_per_phase=wp.chunks_per_phase, pairs_per_step=8)
+    resident = cw.windowed_matmul_tmulti_phased(*args, **kw)
+    streamed = cw.windowed_matmul_tmulti_phased(*args, force_streamed=True,
+                                                **kw)
+    assert torch.equal(resident, streamed)
 
 
 def test_phased_routes_on_card_match_oracle(cuda):
