@@ -60,9 +60,9 @@ Beside each kernel the phases time its library yardstick (``library_ms``:
 on the card outside the timing; none for B2's split mode) and compute
 its bound (``bound_ms``: the larger of its bytes over the H100 SXM's
 3.35 TB/s and its operations over the peak for their type). B1 and B6
-read the compact plane, so their bound counts its bytes and one f32 FMA
-per entry, plane and column of k; ``dense_bound_ms`` beside it is the
-bound of the dense tiles the kernels read before.
+read the compact plane, so their bound counts its bytes and the two
+f32 FMAs per entry and column of k that they run; ``dense_bound_ms``
+beside it is the bound of the dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 and
@@ -288,8 +288,8 @@ def kernel_phase(wp, v):
             *args, fuse_resplit=True, **kw), 200),
         "plain_ms": cuda_ms(lambda: cw.windowed_matmul_tmulti_plain(
             *plain_args, fuse_resplit=True, **plain_kw), 5, warmup=1),
-        # the compact plane and the rest; three f32 FMAs per entry and k
-        **bound(ct.nbytes + rest, 3 * 2 * ct.nnz * k8, "f32"),
+        # the compact plane and the rest; two f32 FMAs per entry and k
+        **bound(ct.nbytes + rest, 2 * 2 * ct.nnz * k8, "f32"),
         # the dense tiles and the rest; three bf16 products per tile
         "dense_bound_ms": bound(nbytes(dense) + rest,
                                 3 * 2 * P * C * R * k8, "bf16")["bound_ms"],
@@ -1021,11 +1021,11 @@ def phased_phase(dev, csr, power):
           f"{b6['plain_ms']} ms")
     check(same, "B6 resident and streamed routes differ")
     P, C2, R = ct.shape
-    # slabs, the work list and the f32 output; the plane, three f32 FMAs
+    # slabs, the work list and the f32 output; the plane, two f32 FMAs
     # per entry and k (dense: the tiles, three bf16 products per tile)
     rest = (nbytes(slabs, wp.pair_chunk_ph, wp.block_ptr_ph)
             + wp.n_blocks * K * R * 4)
-    b6.update(bound(ct.nbytes + rest, 3 * 2 * ct.nnz * K, "f32"),
+    b6.update(bound(ct.nbytes + rest, 2 * 2 * ct.nnz * K, "f32"),
               dense_bound_ms=bound(nbytes(dense) + rest,
                                    3 * 2 * P * (C2 // 2) * R * K,
                                    "bf16")["bound_ms"],

@@ -35,35 +35,39 @@
 //   What bounds it on the H100: bytes, each input read once and the
 //   output written once: on cop20k at k = 32 the entries and offsets
 //   (~16 MB), the slabs (15.5 MB) and the fused state (15.5 MB), ~47 MB,
-//   >= 0.014 ms at 3.35 TB/s; its 0.5 GFLOP of f32 FMAs (three per
-//   entry and k) take >= 0.008 ms on the CUDA cores. The work a CTA
-//   really does is larger: it stages every pair's whole slab (k8 x 2C,
-//   16 KB) from L2 into shared memory, 169 MB a multiply, and each entry
-//   costs shared loads (its record, its column, the slab words of its c)
-//   and three FMAs for each of the k8 rows.
+//   >= 0.014 ms at 3.35 TB/s; its 0.34 GFLOP of f32 FMAs (two per
+//   entry and k, below) take >= 0.005 ms on the CUDA cores. The work a
+//   CTA really does is larger: it stages every pair's whole slab (k8 x
+//   2C, 16 KB) from L2 into shared memory, 169 MB a multiply, and each
+//   entry costs shared loads (its record, its column, the slab words of
+//   its c) and two FMAs for each of the k8 rows.
 //
 //   Design. The CTA walks windows of up to kCap entries of its columns,
 //   a pair at a time (a denser tile takes several windows). Per window
 //   it stages the slab transposed and interleaved, word [c][kk] = hi |
-//   lo << 16, kk XOR-swizzled so that both the copy's stores and the 32
-//   lanes' reads of one c are free of bank conflicts, and one record per
-//   entry (the swizzled offset of c and the tile bits) with the entry's
-//   column. Sixteen workers, the half-warps, then split the window's
-//   entries into even runs, each moved to a column start so that no
-//   column is shared (the split points come from the column threads, no
-//   search), and walk them four entries at a time: a lane holds rows kk
-//   = 2j and 2j + 1, so one 64-bit shared load brings its two slab words
-//   and one warp instruction serves two entries; a running sum per
-//   column is added to the column's accumulator in shared memory when
-//   the column changes. So the work is balanced whatever the tile's
-//   column counts (2 per column on average, at most 26), and the code
-//   has one loop body. The next window's slab unit, entries and column
+//   lo << 16, kk XOR-swizzled by multiples of 4 so that both the copy's
+//   stores and the reads of one c are free of bank conflicts, and one
+//   record per entry (the swizzled offset of c and the tile bits) with
+//   the entry's column. 32 workers of eight lanes then split the
+//   window's entries into even runs, each moved to a column start so
+//   that no column is shared (each column thread finds the workers whose
+//   share begins in its column with one division, no search), and walk
+//   them two entries at a time: a lane holds four rows kk, so one 128-bit
+//   shared load brings its four slab words and one warp instruction
+//   serves four entries; a running sum per column is added to the
+//   column's accumulator in shared memory when the column changes. So
+//   the work is balanced whatever the tile's column counts (2 per column
+//   on average, at most 26), and the code has one loop body. split3's
+//   sh.th + sh.tl + sl.th is summed as sh.(th + tl) + sl.th: th + tl is
+//   the tile's f32 value, exact, so the products are the same with one
+//   rounding fewer. The next window's slab unit, entries and column
 //   bounds are loaded into registers while a window is computed, the
 //   run's pair indices sit in shared memory, and two stage buffers let
 //   one barrier per window separate a buffer's reads from its next
-//   writes. On the H100 the time is far above the byte bound: the
-//   per-window staging and each CTA's chain of windows set it
-//   (bench/probe_b1.py, PERF.md).
+//   writes. Registers set the shape: three CTAs an SM leave 80 a thread,
+//   and a wider batch or deeper prefetch spills. On the H100 the time is
+//   far above the byte bound: the per-window staging and each CTA's
+//   chain of windows set it (bench/probe_b1.py, PERF.md).
 //
 //   Stored zeros are never multiplied: an Inf or NaN in the fat vector
 //   reaches only the outputs of the entries that read it, as in a CSR
@@ -175,6 +179,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
 
 namespace {
 
@@ -203,13 +208,17 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
 
 // ---- B1 / B6: the compact tile plane ----------------------------------
 
-constexpr int kCKS = 32;                // k8 rows per CTA: one per lane
-constexpr int kCCols = 16;              // output columns per warp
+constexpr int kCKS = 32;                // k8 rows per CTA
+constexpr int kCCols = 16;              // output columns per warp (epilogue)
 constexpr int kCRS = kWarps * kCCols;   // output columns per CTA
-constexpr int kWorkers = 2 * kWarps;    // half-warps: each walks its own run
+constexpr int kQ = 4;                   // k8 rows a lane holds in the walk
+constexpr int kWorkerLanes = kCKS / kQ; // a worker: lanes for all k8 rows
+constexpr int kWorkers = kThreads / kWorkerLanes;  // each walks its own run
+constexpr int kBatch = 2;               // entries a worker loads at once
 constexpr int kCMax = 512;              // widest chunk a CTA stages
 constexpr int kCap = 1024;              // entries of a pair a CTA stages
 constexpr int kSeg = 64;                // pair indices a CTA holds at once
+constexpr int kTmultiCtas = 3;          // CTAs per SM (launch bounds)
 
 // The compact plane (formats/windowed.py::CompactTiles): pair_nz_ptr
 // (P + 1) int32 global entry offsets, col_ptr (P, R + 1) ColT offsets
@@ -232,29 +241,79 @@ struct WordOf<true> {
   using T = uint32_t;
 };
 
-// Two stage buffers (a slab, kCap 8-byte entry records and kCap column
-// ids each) and the accumulators.
+// Two stage buffers (a slab, kCap 8-byte entry records, the workers'
+// run bounds and kCap column ids each) and the accumulators.
 template <bool SPLIT>
 constexpr int tmulti_smem_bytes(int C) {
   return 2 * (C * kCKS * static_cast<int>(sizeof(typename WordOf<SPLIT>::T)) +
-              kCap * 9) +
-         kCRS * kCKS * 4 + kSeg * 16 + 64 * 4;
+              kCap * 9 + (kWorkers + 1) * 4) +
+         kCRS * kCKS * 4 + kSeg * 16;
 }
 
-// a + s . t for a staged slab word s and an entry's tile bits t: split3
-// sh.th + sh.tl + sl.th in f32 FMAs, or one product.
-__device__ __forceinline__ float fma_word(uint32_t s, int t, float a) {
-  const float sh = __uint_as_float(s << 16);
-  const float sl = __uint_as_float(s & 0xffff0000u);
+// An N-byte vector: one shared-memory load or store.
+template <int N>
+struct Bits;
+template <>
+struct Bits<4> {
+  using T = uint32_t;
+};
+template <>
+struct Bits<8> {
+  using T = uint2;
+};
+template <>
+struct Bits<16> {
+  using T = uint4;
+};
+
+// A lane's kQ staged slab words from index i (a multiple of kQ).
+template <typename Word>
+__device__ __forceinline__ void load_words(const Word* s, int i,
+                                           Word (&w)[kQ]) {
+  using V = typename Bits<kQ * sizeof(Word)>::T;
+  const V v = *reinterpret_cast<const V*>(s + i);
+  memcpy(w, &v, sizeof v);
+}
+
+// run[j] += s[j] . t for a lane's staged slab words s[j] and an entry's
+// tile bits t. split3, sh.th + sh.tl + sl.th, is summed as sh.(th + tl)
+// + sl.th: th + tl, the bf16 split of one f32 value, is that value, exact
+// in f32, so the products are the same and one rounding fewer.
+__device__ __forceinline__ void fma_words(const uint32_t (&s)[kQ], int t,
+                                          float (&run)[kQ]) {
   const float th = __uint_as_float(static_cast<uint32_t>(t) << 16);
-  a = fmaf(sh, th, a);
-  a = fmaf(sh, __uint_as_float(static_cast<uint32_t>(t) & 0xffff0000u), a);
-  return fmaf(sl, th, a);
+  const float ts =
+      th + __uint_as_float(static_cast<uint32_t>(t) & 0xffff0000u);
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    run[j] = fmaf(__uint_as_float(s[j] << 16), ts, run[j]);
+    run[j] = fmaf(__uint_as_float(s[j] & 0xffff0000u), th, run[j]);
+  }
 }
 
-__device__ __forceinline__ float fma_word(uint16_t s, int t, float a) {
-  return fmaf(__uint_as_float(static_cast<uint32_t>(s) << 16),
-              __uint_as_float(static_cast<uint32_t>(t) << 16), a);
+__device__ __forceinline__ void fma_words(const uint16_t (&s)[kQ], int t,
+                                          float (&run)[kQ]) {
+  const float th = __uint_as_float(static_cast<uint32_t>(t) << 16);
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    run[j] = fmaf(__uint_as_float(static_cast<uint32_t>(s[j]) << 16), th,
+                  run[j]);
+  }
+}
+
+// acc[j] += run[j], j < kQ (one vector load and store), and run = 0.
+__device__ __forceinline__ void flush_run(float* acc, float (&run)[kQ]) {
+  using V = typename Bits<kQ * 4>::T;
+  V v = *reinterpret_cast<V*>(acc);
+  float f[kQ];
+  memcpy(f, &v, sizeof v);
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    f[j] += run[j];
+    run[j] = 0.f;
+  }
+  memcpy(&v, f, sizeof v);
+  *reinterpret_cast<V*>(acc) = v;
 }
 
 // The staged slab is c-major, s[c][kk] for the 32 rows kk of the CTA's
@@ -313,29 +372,6 @@ __device__ __forceinline__ void store_unit(typename WordOf<SPLIT>::T* s,
   store_group<SPLIT>(s, c0 + C / 2, kk, u.h1, u.l1);
 }
 
-// Lane kk's and kk + 1's staged slab words at word index i (even).
-template <bool SPLIT>
-__device__ __forceinline__ void load_pair(
-    const typename WordOf<SPLIT>::T* s, int i, uint32_t& w0, uint32_t& w1) {
-  if constexpr (SPLIT) {
-    const uint2 v = *reinterpret_cast<const uint2*>(s + i);
-    w0 = v.x;
-    w1 = v.y;
-  } else {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(s + i);
-    w0 = v & 0xffffu;
-    w1 = v >> 16;
-  }
-}
-
-// acc[0] += a, acc[1] += b (one 64-bit load and store).
-__device__ __forceinline__ void add_pair(float* acc, float a, float b) {
-  float2 v = *reinterpret_cast<float2*>(acc);
-  v.x += a;
-  v.y += b;
-  *reinterpret_cast<float2*>(acc) = v;
-}
-
 // hi = rn(x), lo = rn(x - hi): the bits of the fused chain state.
 __device__ __forceinline__ void split_rn(float x, unsigned& hi,
                                          unsigned& lo) {
@@ -353,10 +389,11 @@ __device__ __forceinline__ void split_rn(float x, unsigned& hi,
 // The CTA walks windows of up to kCap entries of its columns (a tile
 // with more takes several): per window it stages the slab and one record
 // per entry (the swizzled slab offset of c and the tile value) with the
-// entry's column, then the 16 half-warps split the window's entries into
-// even runs, each moved to a column start so that no column is shared,
-// and walk them four entries at a time: a running sum per column, added
-// to the column's accumulator in shared memory when the column changes.
+// entry's column, then the kWorkers workers (kWorkerLanes lanes each,
+// kQ rows of k8 a lane) split the window's entries into even runs, each
+// moved to a column start so that no column is shared, and walk them
+// kBatch entries at a time: a running sum per column, added to the
+// column's accumulator in shared memory when the column changes.
 // Software-pipelined: while one window is computed, the next window's
 // slab unit and entries are in flight to registers, and the next pair's
 // indices, so no global load's latency sits between two windows; one
@@ -369,14 +406,16 @@ __device__ __forceinline__ void tmulti_block(
   using Word = typename WordOf<SPLIT>::T;
   constexpr int kPer = kCap / kThreads;  // entries a thread stages
   extern __shared__ __align__(16) unsigned char smem[];
-  // Two slab buffers (C x kCKS words), two record buffers, two column-id
-  // buffers, the accumulators [kCRS][kCKS].
+  // Two slab buffers (C x kCKS words), two record buffers, the
+  // accumulators [kCRS][kCKS], the pair indices, two run-bound buffers,
+  // two column-id buffers.
   Word* s_slab = reinterpret_cast<Word*>(smem);
   int2* s_rec = reinterpret_cast<int2*>(s_slab + 2 * C * kCKS);
   float* s_acc = reinterpret_cast<float*>(s_rec + 2 * kCap);
   int4* s_idx = reinterpret_cast<int4*>(s_acc + kCRS * kCKS);
-  int* s_split = reinterpret_cast<int*>(s_idx + kSeg);  // two of kWorkers + 1
-  unsigned char* s_col = reinterpret_cast<unsigned char*>(s_split + 64);
+  int* s_split = reinterpret_cast<int*>(s_idx + kSeg);
+  unsigned char* s_col =
+      reinterpret_cast<unsigned char*>(s_split + 2 * (kWorkers + 1));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -463,24 +502,28 @@ __device__ __forceinline__ void tmulti_block(
         rec[e] = make_int2(c * kCKS + ((c >> 1) & 0x1c), e_t[i]);
       }
     }
+    // Worker w's even share begins at entry t(w) = ceil(w m / kWorkers).
     if (tid < rs) {
       // Column tid's entries in the window, [a, b): their column ids, and
-      // the start of every worker whose even share begins inside them (the
-      // next column start, so that no column is split between workers).
+      // the start of every worker whose share begins inside them (the
+      // next column start, so that no column is split between workers):
+      // those w from the first with t(w) >= a, floor((a - 1) kWorkers / m)
+      // + 1, while t(w) < b.
       const int a = max(col_a - w0, 0), b = min(col_b - w0, m);
       for (int e = a; e < b; ++e) col[e] = static_cast<unsigned char>(tid);
-#pragma unroll
-      for (int w = 1; w < kWorkers; ++w) {
-        const int t = (w * m + kWorkers - 1) / kWorkers;
-        if (a <= t && t < b) split[w] = t == a ? a : b;
+      if (a < b) {
+        for (int w = a == 0 ? 0 : (a - 1) * kWorkers / m + 1; w < kWorkers;
+             ++w) {
+          const int t = (w * m + kWorkers - 1) / kWorkers;
+          if (t >= b) break;
+          split[w] = t == a ? a : b;
+        }
       }
     }
-    if (tid == 0) {  // and the shares that begin past the last entry
-      split[0] = 0;
-#pragma unroll
-      for (int w = 1; w <= kWorkers; ++w) {
-        if ((w * m + kWorkers - 1) / kWorkers >= m) split[w] = m;
-      }
+    // And the shares that begin past the last entry (all of them when the
+    // window is empty).
+    if (tid <= kWorkers && (tid * m + kWorkers - 1) / kWorkers >= m) {
+      split[tid] = m;
     }
     // Advance to the pair's next window, or the next pair, and prefetch.
     w0 += kCap;
@@ -498,44 +541,43 @@ __device__ __forceinline__ void tmulti_block(
       load_data(q, w0);
     }
     __syncthreads();
-    // Worker w (half-warp w, lanes kk = 2j, 2j + 1) walks the run from
-    // entry ceil(w m / 16), moved to a column start, four entries at a
-    // time; one shared load brings a lane both of its slab words.
-    const int kk2 = 2 * (lane & 15);
-    int e = split[2 * warp + (lane >> 4)];
-    const int end = split[2 * warp + (lane >> 4) + 1];
+    // Worker w (lanes kWorkerLanes w.., rows kk = kq..kq + kQ - 1 of
+    // lane kq / kQ) walks its run kBatch entries at a time; one shared
+    // load brings a lane its kQ slab words (the swizzle keeps them
+    // contiguous).
+    const int kq = kQ * (lane % kWorkerLanes);
+    int e = split[tid / kWorkerLanes];
+    const int end = split[tid / kWorkerLanes + 1];
     int prev = e < end ? col[e] : -1;
-    float run0 = 0.f, run1 = 0.f;
+    float run[kQ] = {};
     while (__any_sync(0xffffffffu, e < end)) {
-      int2 r[4];
-      int cl[4];
-      uint32_t wa[4], wb[4];
+      int2 r[kBatch];
+      int cl[kBatch];
+      Word wd[kBatch][kQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kBatch; ++i) {
         if (e + i < end) {
           r[i] = rec[e + i];
           cl[i] = col[e + i];
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (e + i < end) load_pair<SPLIT>(s, r[i].x ^ kk2, wa[i], wb[i]);
+      for (int i = 0; i < kBatch; ++i) {
+        if (e + i < end) load_words(s, r[i].x ^ kq, wd[i]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kBatch; ++i) {
         if (e + i < end) {
           if (cl[i] != prev) {  // the column changed: add its sums
-            add_pair(s_acc + prev * kCKS + kk2, run0, run1);
-            run0 = run1 = 0.f;
+            flush_run(s_acc + prev * kCKS + kq, run);
             prev = cl[i];
           }
-          run0 = fma_word(static_cast<Word>(wa[i]), r[i].y, run0);
-          run1 = fma_word(static_cast<Word>(wb[i]), r[i].y, run1);
+          fma_words(wd[i], r[i].y, run);
         }
       }
-      e += 4;
+      e += kBatch;
     }
-    if (prev >= 0) add_pair(s_acc + prev * kCKS + kk2, run0, run1);
+    if (prev >= 0) flush_run(s_acc + prev * kCKS + kq, run);
   }
   __syncthreads();
   const int r0 = r_base + warp * kCCols;          // this warp's output
@@ -580,7 +622,7 @@ __device__ __forceinline__ void tmulti_block(
 
 // B1: CTA x owns output block x.
 template <bool SPLIT, bool FUSE, typename ColT, typename RowT>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, kTmultiCtas)
 tmulti_kernel(const int* __restrict__ block_ptr,
               const int* __restrict__ pair_chunk, Compact tiles,
               const __nv_bfloat16* __restrict__ slabs,
@@ -596,7 +638,7 @@ tmulti_kernel(const int* __restrict__ block_ptr,
 // phase's run bounds in block_ptr_ph); block_ptr_ph holds each phase's
 // nb_ph + 1 run bounds relative to its pair_off.
 template <bool SPLIT, typename ColT, typename RowT>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, kTmultiCtas)
 tmulti_phased_kernel(const int* __restrict__ phases, int n_phases,
                      const int* __restrict__ block_ptr_ph,
                      const int* __restrict__ pair_chunk_ph, Compact tiles,
