@@ -37,18 +37,23 @@ next-state epilogue; dec). Phases:
    per-iteration time from fixed-length solves and the amortized
    ``run_benchmark`` rate;
 6. two-pair path: ``Auto(pairs_per_step=2)`` on the cop20k stand-in
-   (route R = C = 256, U = 2, 2,270 pairs, 474 blocks, a spill). B3
-   (split3) and B4 (f32, one plane; on the build's tiles and on
-   full-mantissa ones) against their plain versions at k = 32, B7 (one
-   launch over every spill bucket, and each bucket alone) against the
-   take route, all within ``1e-5 * cond + 1e-6``; then, with the counts
-   zeroed, a one-shot ``spmm_any`` with the spill through the take
-   route, one with the spill through B7 (``SPILL_DMA_GATHER``, one B7
-   launch), and the amortized
-   ``run_benchmark`` (encode, iterate = B2 + B3 + spill, decode), each
-   against the f64 oracle. The same in bf16 (route R = C = 512, 1,098
-   pairs): B4 (bf16) against its plain version, one-shot and amortized
-   ``run_benchmark(dtype=bfloat16)`` in the bf16 tier;
+   (route R = C = 256, U = 2, 2,270 pairs, 474 blocks, a spill), its
+   card copy checked to hold the natural compact plane of
+   ``tiles_split`` and no dense natural plane (the plane's entries,
+   bytes and host build time printed). B3 (split3, on that plane) and B4
+   (f32, one dense plane; on the build's tiles and on full-mantissa
+   ones) against their plain versions at k = 32 (on the dense planes
+   rebuilt from the compact one), B7 (one launch over every spill
+   bucket, and each bucket alone) against the take route, all within
+   ``1e-5 * cond + 1e-6``; then, with the counts zeroed, a one-shot
+   ``spmm_any`` with the spill through the take route, one with the
+   spill through B7 (``SPILL_DMA_GATHER``, one B7 launch), and the
+   amortized ``run_benchmark`` (encode, iterate = B2 + B3 + spill,
+   decode), each against the f64 oracle, and the path's peak device
+   memory. The same in bf16 (route R = C = 512, 1,098 pairs, a spill;
+   the card copy holds the natural compact plane of ``tiles``): B4
+   (bf16, on that plane) against its plain version, one-shot and
+   amortized ``run_benchmark(dtype=bfloat16)`` in the bf16 tier;
 7. phased chain: ``Auto(phase_layout=True)`` (three phases, 448 chunks
    per phase). B6 resident and streamed (B1 per phase) against the plain
    version and each other; with the counts zeroed, a one-shot
@@ -59,10 +64,11 @@ Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
 on the card outside the timing; none for B2's split mode) and compute
 its bound (``bound_ms``: the larger of its bytes over the H100 SXM's
-3.35 TB/s and its operations over the peak for their type). B1 and B6
-read the compact plane, so their bound counts its bytes and the two
-f32 FMAs per entry and column of k that they run; ``dense_bound_ms``
-beside it is the bound of the dense tiles the kernels read before.
+3.35 TB/s and its operations over the peak for their type). B1, B3, B4
+bf16 and B6 read a compact plane, so their bound counts its bytes and
+the f32 FMAs per entry and column of k that they run (two with split
+planes, one without); ``dense_bound_ms`` beside it is the bound of the
+dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 and
@@ -753,6 +759,46 @@ def entry(name, label, src, replaces, launches, numbers, **extra):
             **{key: numbers[key] for key in ENTRY_KEYS}, **extra}
 
 
+def two_pair_operand(csr, dev, field, label):
+    """``Auto(pairs_per_step=2).prepare(csr, dev)`` in its two steps, the
+    host build and ``to(cuda)``, with the card copy's plane checked: the
+    natural ``CompactTiles`` of the host's dense ``field`` (``tiles_split``
+    for f32, ``tiles`` for bf16), and no dense natural plane. The plane's
+    host build is also timed alone. Returns the card copy and the plane's
+    numbers."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        CompactTiles,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
+
+    t0 = time.perf_counter()
+    host = auto_format(csr, pairs_per_step=2)
+    t1 = time.perf_counter()
+    wp = host.to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dense = getattr(host, field)
+    plane = CompactTiles.from_natural(dense, field == "tiles_split")
+    build_s = time.perf_counter() - t2
+    ct = getattr(wp, field)
+    check(isinstance(ct, CompactTiles) and ct.natural
+          and ct.shape == dense.shape and ct.nnz == plane.nnz
+          and not any(isinstance(getattr(wp, f), torch.Tensor)
+                      for f in ("tiles", "tiles_split")),
+          f"the two-pair {label} card copy does not hold the compact plane "
+          f"in place of its dense {field}")
+    numbers = {"entries": plane.nnz, "bytes": ct.nbytes,
+               "dense_bytes": dense.nbytes, "host_build_s": build_s}
+    print(f"two-pair {label}: auto_format {t1 - t0:.2f} s, to(cuda) "
+          f"{t2 - t1:.2f} s; route {windowed_route(wp)}; compact natural "
+          f"plane {plane.nnz} entries, {ct.nbytes} B on the card in place of "
+          f"the dense {field} {dense.nbytes} B {tuple(dense.shape)}; built on "
+          f"the host in {build_s} s")
+    return wp, numbers
+
+
 def two_pair_phase(dev, csr, power):
     """Phase 6: the U=2 windowed path on the cop20k stand-in, f32 (B2 +
     B3, spill by take or by B7) and bf16 (B2 + B4). Returns the B3, B4
@@ -770,15 +816,10 @@ def two_pair_phase(dev, csr, power):
         cuda_gather as cg, cuda_windowed as cw, ell as ell_ops,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
-    from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
 
-    # 6.1 route
-    t0 = time.perf_counter()
-    wp = Auto(pairs_per_step=2).prepare(csr, dev)
-    torch.cuda.synchronize()
+    # 6.1 route and the compact natural plane
+    wp, plane_f32 = two_pair_operand(csr, dev, "tiles_split", "f32")
     route = windowed_route(wp)
-    print(f"two-pair f32: prepare {time.perf_counter() - t0:.2f} s; route "
-          f"{route}")
     check(route == U2_F32_ROUTE, f"unexpected two-pair route {route}")
     print(f"spill buckets {[tuple(b.cols.shape) for b in wp.spill.buckets]}")
     C, nb = wp.chunk_cols, wp.n_blocks
@@ -787,7 +828,10 @@ def two_pair_phase(dev, csr, power):
     v_p = wp.encode(v).contiguous()
     pb, pc, bp = wp.pair_block, wp.pair_chunk, wp.block_ptr
 
-    # 6.2 B3, B4 (f32) and B7 against their plain versions
+    # 6.2 B3, B4 (f32) and B7 against their plain versions; B3 on the
+    # compact plane, the plain version on the dense plane rebuilt from it
+    ct = wp.tiles_split
+    dense = ct.to_dense()
     P, R = wp.n_pairs, wp.block_rows
     flops = 2 * P * R * C * K  # one product of every tile
     out_bytes = nb * R * K * 4
@@ -795,15 +839,21 @@ def two_pair_phase(dev, csr, power):
     slabs = cw.chunk_slabs(v_p, C=C, split=True)
     b3 = kernel_vs_plain(
         "B3 windowed_matmul_split3",
-        lambda: cw.windowed_matmul_split3(pb, pc, bp, wp.tiles_split, slabs,
-                                          nb=nb),
+        lambda: cw.windowed_matmul_split3(pb, pc, bp, ct, slabs, nb=nb),
         lambda t, s: cw.windowed_matmul_split3_plain(pb, pc, t, s, nb=nb),
-        wp.tiles_split, slabs)
-    b3.update(bound(nbytes(wp.tiles_split, slabs, pc, bp) + out_bytes,
-                    3 * flops, "bf16"),
+        dense, slabs, n=200)
+    rest = nbytes(slabs, pc, bp) + out_bytes
+    # the compact plane and the rest; two f32 FMAs per entry and k (dense:
+    # the tiles, three bf16 products per tile)
+    b3.update(bound(ct.nbytes + rest, 2 * 2 * ct.nnz * K, "f32"),
+              dense_bound_ms=bound(nbytes(dense) + rest, 3 * flops,
+                                   "bf16")["bound_ms"],
               library_ms=library_ms("B3", a_csr, v_p))
-    tiles32 = (wp.tiles_split[..., :C].float()
-               + wp.tiles_split[..., C:].float())
+    print(f"B3 {b3['ms']} ms, bound {b3['bound_ms']} ms (compact plane "
+          f"{ct.nbytes} B), dense-tile bound {b3['dense_bound_ms']} ms, "
+          f"library {b3['library_ms']} ms")
+    tiles32 = dense[..., :C].float() + dense[..., C:].float()
+    del dense
     slabs32 = cw.chunk_slabs(v_p, C=C, split=False)
     b4_f32 = kernel_vs_plain(
         "B4 windowed_matmul_single f32",
@@ -832,6 +882,7 @@ def two_pair_phase(dev, csr, power):
     # 6.3 main path, counted: one-shot (take, then B7), amortized chain
     oracle, cond = oracle_parts(csr, v_host)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cw.reset_launch_counts()
     cg.reset_launch_counts()
     one_take = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
@@ -848,6 +899,7 @@ def two_pair_phase(dev, csr, power):
                         dtype=np.float32, amortized=True, inner=20)
     torch.cuda.synchronize()
     counts = {**cw.launch_counts(), **cg.launch_counts()}
+    plane_f32["peak_device_memory"] = torch.cuda.max_memory_allocated()
     print(f"two-pair f32 one-shot spmm_any: take route correct={one_take}, "
           f"B7 route correct={one_dma}; amortized {rec.execution_time * 1e3}"
           f" ms per multiply, {rec.gnnz_per_s} Gnnz/s, correct={rec.correct}"
@@ -871,12 +923,8 @@ def two_pair_phase(dev, csr, power):
 
     # 6.4 bf16: route, B4 against its plain version, main path counted
     csr_bf = csr.astype(torch.bfloat16)
-    t0 = time.perf_counter()
-    wpb = Auto(pairs_per_step=2).prepare(csr_bf, dev)
-    torch.cuda.synchronize()
+    wpb, plane_bf16 = two_pair_operand(csr_bf, dev, "tiles", "bf16")
     route_bf = windowed_route(wpb)
-    print(f"two-pair bf16: prepare {time.perf_counter() - t0:.2f} s; route "
-          f"{route_bf}")
     check({k: route_bf[k] for k in U2_BF16_ROUTE} == U2_BF16_ROUTE,
           f"unexpected bf16 two-pair route {route_bf}")
     vb = v.to(torch.bfloat16)  # integers 1..100: exact in bf16
@@ -884,15 +932,21 @@ def two_pair_phase(dev, csr, power):
                              split=False)
     pb, pc, bp, nb = (wpb.pair_block, wpb.pair_chunk, wpb.block_ptr,
                       wpb.n_blocks)
+    ctb = wpb.tiles
+    dense_b = ctb.to_dense()
     b4 = kernel_vs_plain(
         "B4 windowed_matmul_single bf16",
-        lambda: cw.windowed_matmul_single(pb, pc, bp, wpb.tiles, slabs_b,
-                                          nb=nb),
+        lambda: cw.windowed_matmul_single(pb, pc, bp, ctb, slabs_b, nb=nb),
         lambda t, s: cw.windowed_matmul_single_plain(pb, pc, t, s, nb=nb),
-        wpb.tiles, slabs_b)
-    P, R, C = wpb.tiles.shape
-    b4.update(bound(nbytes(wpb.tiles, slabs_b, pc, bp) + nb * R * K * 4,
-                    2 * P * R * C * K, "bf16"))
+        dense_b, slabs_b, n=200)
+    P, R, C = ctb.shape
+    rest = nbytes(slabs_b, pc, bp) + nb * R * K * 4
+    # the compact plane and the rest, one f32 FMA per entry and k (dense:
+    # the tiles, one bf16 product per tile)
+    b4.update(bound(ctb.nbytes + rest, 2 * ctb.nnz * K, "f32"),
+              dense_bound_ms=bound(nbytes(dense_b) + rest,
+                                   2 * P * R * C * K, "bf16")["bound_ms"])
+    del dense_b
     v_pb = wpb.encode(vb).contiguous()
     try:
         b4["library_ms"] = library_ms("B4 bf16", windowed_csr(wpb), v_pb)
@@ -903,8 +957,12 @@ def two_pair_phase(dev, csr, power):
             "B4 bf16 (f32 operands)", windowed_csr(wpb, torch.float32),
             v_pb.float())
     del slabs_b, v_pb
+    print(f"B4 bf16 {b4['ms']} ms, bound {b4['bound_ms']} ms (compact "
+          f"plane {ctb.nbytes} B), dense-tile bound {b4['dense_bound_ms']} "
+          f"ms, library {b4['library_ms']} ms")
     oracle_bf, cond_bf = oracle_parts(csr_bf, cast(v_host, torch.bfloat16))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     cw.reset_launch_counts()
     one_bf = matches_oracle(spmm_any(wpb, vb), oracle_bf, cond_bf,
                             torch.bfloat16)
@@ -915,6 +973,7 @@ def two_pair_phase(dev, csr, power):
                            dtype=torch.bfloat16, amortized=True, inner=20)
     torch.cuda.synchronize()
     counts_bf = cw.launch_counts()
+    plane_bf16["peak_device_memory"] = torch.cuda.max_memory_allocated()
     print(f"two-pair bf16 one-shot spmm_any correct={one_bf}; amortized "
           f"{rec_bf.execution_time * 1e3} ms per multiply, "
           f"{rec_bf.gnnz_per_s} Gnnz/s, correct={rec_bf.correct}, dtype "
@@ -937,15 +996,17 @@ def two_pair_phase(dev, csr, power):
             "correct": rec_bf.correct, "one_shot_correct": one_bf,
             "max_error": rec_bf.max_error, "launches": counts_bf},
         "b7_all_buckets_ms": b7["ms"], "take_route_ms": b7["take_route_ms"],
-        "power": power}))
+        "plane_f32": plane_f32, "plane_bf16": plane_bf16, "power": power}))
     # B4 f32 runs on no routed path (an f32 build carries split planes, so
     # B3 runs): its numbers ride on the B4 entry.
     f32_extra = {f"f32_{key}": b4_f32[key] for key in ENTRY_KEYS}
     return [
         entry("B3", "windowed_matmul_split3", SRC, REPLACES["B3"],
-              b3_launches, b3),
+              b3_launches, b3, dense_bound_ms=b3["dense_bound_ms"],
+              compact_plane_bytes=plane_f32["bytes"]),
         entry("B4", "windowed_matmul_single (bf16)", SRC, REPLACES["B4"],
-              counts_bf["B4"], b4, **f32_extra,
+              counts_bf["B4"], b4, dense_bound_ms=b4["dense_bound_ms"],
+              compact_plane_bytes=plane_bf16["bytes"], **f32_extra,
               f32_full_mantissa_max_abs_err=b4_full),
         entry("B7", "ell_gather_bucketed (all spill buckets, one launch)",
               B7_SRC, B7_REPLACES, b7_launches, b7,

@@ -108,40 +108,63 @@
 //   routes agree bit for bit. Same bound as B1 (the phase layout's
 //   dummies add no entries).
 //
-// B3  natural_launch mode 0 — replaces pallas_windowed.py:_kernel_split3
-//     (wrapper windowed_matmul_split3).
-// B4  natural_launch modes 1, 2 — replaces pallas_windowed.py:
-//     _kernel_plain (wrapper windowed_matmul_pallas).
+// B3  natural_compact_launch split — replaces pallas_windowed.py:
+//     _kernel_split3 (wrapper windowed_matmul_split3).
+// B4  natural_compact_launch one plane (bf16), natural_launch mode 2
+//     (f32) — replace pallas_windowed.py:_kernel_plain (wrapper
+//     windowed_matmul_pallas).
 //
 //   Natural layout: out[b] (R x k8, f32) = sum over the pairs p of block b
-//   of tile[p] (R x C) . slab[pair_chunk[p]]^T (slab k8 x C).
-//   Mode 0 (B3): bf16 hi|lo planes packed along the last axis of both
-//   operands, th.sh + tl.sh + th.sl with f32 accumulation. Mode 1 (B4,
-//   bf16): one bf16 plane, f32 accumulation. Mode 2 (B4, f32): f32 tiles
-//   and slabs at f32 accuracy (the reference's Precision.HIGHEST).
+//   of tile[p] (R x C) . slab[pair_chunk[p]]^T (slab k8 x C). B3: bf16
+//   hi|lo planes of both operands, th.sh + tl.sh + th.sl with f32
+//   accumulation (summed as sh.(th + tl) + sl.th, as in B1). B4 bf16: one
+//   bf16 plane, f32 accumulation. B4 f32 (mode 2): f32 tiles and slabs at
+//   f32 accuracy (the reference's Precision.HIGHEST).
 //
 //   The TPU grid walks two pairs per step and zeroes the output block on
 //   its first step, so the build pads each block's run to even length.
-//   Here one CTA owns (block b, <= 128 tile rows, <= 32 columns of k) and
-//   walks b's run [block_ptr[b], block_ptr[b+1]) with the accumulator in
-//   registers: even runs are not needed (the wrapper still checks the
-//   reference's even pair count), an empty run writes zeros.
+//   Here one CTA owns (block b, <= 128 tile rows r, <= 32 columns of k)
+//   and walks b's run [block_ptr[b], block_ptr[b+1]): even runs are not
+//   needed (the wrapper still checks the reference's even pair count), an
+//   empty run writes zeros, and there are no atomics.
 //
-//   What bounds modes 0 and 1 on the H100: the tile stream (cop20k U = 2
-//   f32, R = C = 256: 2,270 split tiles, 595 MB, >= 0.178 ms at 3.35 TB/s;
-//   bf16 R = C = 512: 1,098 tiles, 576 MB). The products run on the
-//   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate; exact
-//   products), which suits this layout directly: the tile (R x C
-//   row-major) is the A operand (M = R, K = C), the slab (k8 x C
-//   row-major) the B operand in mma's col layout (N = k8). A tile is
-//   staged in 128-column K-slices (a 256 x 512 split tile is 512 KB, past
-//   any CTA's shared memory): 128 rows x 128 columns per plane, 16-byte
-//   cp.async, rows padded by 16 bytes so ldmatrix (tile) and the 32-bit
-//   slab fragment loads are free of bank conflicts; two CTAs share an
-//   SM, so one computes while the other loads. Each of the 8 warps owns
-//   16 tile rows (one m16 tile) and all <= 32 columns of k. R = 8 fills
-//   half an m16 tile: the other rows are zero in shared memory and their
-//   outputs are dropped.
+//   B3 and B4 bf16 read the compact plane of the natural tiles
+//   (formats/windowed.py::CompactTiles with natural): a natural tile
+//   (R x C) is the transpose of a B1 tile (C x R), and the plane stores
+//   entries by output index r, then c, so it is exactly B1's plane of the
+//   transposed tiles, and the body is B1's (tmulti_block) with a natural
+//   epilogue: lane kk of a warp writes out[b][r][k_base + kk], 128
+//   contiguous bytes per r. The dense tiles of the cop20k U = 2 routes are
+//   98-99 % zeros: f32 (R = C = 256, 2,270 split tiles) 595 MB for 2.32 M
+//   entries, bf16 (R = C = 512, 1,098 tiles) 576 MB for 2.44 M entries.
+//
+//   What bounds them on the H100: bytes, each input read once and the
+//   output written once: the compact plane (~13.9 MB f32, ~12.0 MB bf16),
+//   the slabs (15.5 MB f32 split, 7.8 MB bf16) and the output (15.5 MB),
+//   ~45 MB >= 0.0134 ms (B3) and ~35 MB >= 0.0105 ms (B4 bf16) at 3.35
+//   TB/s; their f32 FMAs (two per entry and k for B3, one for B4) take
+//   less on the CUDA cores. As for B1, the work a CTA really does is
+//   larger: it stages each pair's whole slab (32 KB at these shapes) from
+//   L2 for ~500 entries of its rows. At C = 256 split or C = 512 bf16 a
+//   CTA takes 101,640 B of shared memory, so two CTAs share an SM
+//   (kNaturalCtas), and each thread may hold 128 registers: the whole
+//   next slab is prefetched into registers while a window is computed
+//   (kNaturalPrefetch), where B1 (three CTAs an SM) prefetches an eighth
+//   of it. A pair with no entry in the CTA's rows (the even-run padding,
+//   a tile whose entries lie in the other 128-row slice) is skipped
+//   without staging. Stored zeros are never multiplied: an Inf or NaN in
+//   the fat vector reaches only the outputs of the entries that read it,
+//   as in a CSR product (the TPU kernels' dense dots spread it over the
+//   whole tile).
+//
+//   The compact kernel stages at most kCMax = 512 columns. A chunk wider
+//   than that (a caller may pin chunk_cols) keeps its dense natural
+//   planes on the card (WindowedPairs.to), and natural_launch modes 0 and
+//   1 run the dense kernel natural_kernel on them: the tiles on the
+//   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), staged in
+//   128-column K-slices by cp.async, each of 8 warps owning 16 tile rows
+//   and all <= 32 columns of k; R = 8 fills half an m16 tile, the other
+//   rows zero in shared memory. Its bound is the dense tile stream.
 //
 //   What bounds mode 2: the f32 tile stream, 626 MB per cop20k U = 2
 //   multiply (2,270 x 256 x 256 x 4 B of tiles, plus slabs and output):
@@ -219,6 +242,25 @@ constexpr int kCMax = 512;              // widest chunk a CTA stages
 constexpr int kCap = 1024;              // entries of a pair a CTA stages
 constexpr int kSeg = 64;                // pair indices a CTA holds at once
 constexpr int kTmultiCtas = 3;          // CTAs per SM (launch bounds)
+// Whether B1 and B6 skip the pairs with no entry in a CTA's columns
+// without staging them: their operands have few, and the check at each
+// pair boundary cost B1 1.7 % (bench/probe_b1_variants.py).
+constexpr bool kTmultiSkip = false;
+// B3 / B4 bf16 on the compact natural plane (tmulti_natural_kernel): the
+// same body at R, C = 256 (split) or 512 (bf16), where a CTA's 101,640 B of
+// shared memory leave room for two CTAs an SM, so up to 128 registers a
+// thread: more entries a batch, and the whole 32 KB slab of a window
+// prefetched into registers (kNaturalPrefetch bytes a thread). Their
+// operands hold many pairs with nothing in a CTA's rows (the even-run
+// padding, tiles filled in one 128-row slice only), which they skip.
+constexpr int kNaturalCtas = 2;
+constexpr int kNaturalBatch = 4;
+constexpr int kNaturalPrefetch = 128;
+constexpr bool kNaturalSkip = true;
+
+// What the body writes: B1's (nb, k8, R) f32, its fused next chain state
+// (nb, k8, 2R) bf16 [hi | lo], or the natural (nb, R, k8) f32 of B3 / B4.
+enum Out { kOutT, kOutFused, kOutNatural };
 
 // The compact plane (formats/windowed.py::CompactTiles): pair_nz_ptr
 // (P + 1) int32 global entry offsets, col_ptr (P, R + 1) ColT offsets
@@ -331,6 +373,13 @@ struct Unit {
   uint4 h0, h1, l0, l1;
 };
 
+// Staging units a thread holds for `bytes` of slab (at least one): a
+// unit is 16 columns of both planes (64 B) with SPLIT, else of one (32 B).
+template <bool SPLIT>
+__host__ __device__ constexpr int units_of(int bytes) {
+  return bytes < (SPLIT ? 128 : 64) ? 1 : bytes / (SPLIT ? 64 : 32);
+}
+
 template <bool SPLIT>
 __device__ __forceinline__ Unit load_unit(const __nv_bfloat16* row, int c0,
                                           int C) {
@@ -380,25 +429,27 @@ __device__ __forceinline__ void split_rn(float x, unsigned& hi,
   lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __bfloat162float(h)));
 }
 
-// One CTA's share of an output block of B1 / B6: the pairs [p_begin,
-// p_end) (indices into the compact plane and pair_chunk), slabs at
-// chunk_base + pair_chunk[p], the sum written as output block `b` (k8 x R
-// f32, or the fused bf16 [hi | lo] state k8 x 2R). blockIdx.y / .z pick
-// the k8 and R slices.
+// One CTA's share of an output block of B1 / B6 / B3 / B4 bf16: the
+// pairs [p_begin, p_end) (indices into the compact plane and pair_chunk),
+// slabs at chunk_base + pair_chunk[p], the sum written as output block `b`
+// in the layout OUT. blockIdx.y / .z pick the k8 and R slices.
 //
 // The CTA walks windows of up to kCap entries of its columns (a tile
-// with more takes several): per window it stages the slab and one record
-// per entry (the swizzled slab offset of c and the tile value) with the
-// entry's column, then the kWorkers workers (kWorkerLanes lanes each,
+// with more takes several; with SKIP, a pair with none in its columns
+// takes none: no staging, no barrier): per window it stages the slab and
+// one record per entry (the swizzled slab offset of c and the tile value)
+// with the entry's column, then the kWorkers workers (kWorkerLanes lanes each,
 // kQ rows of k8 a lane) split the window's entries into even runs, each
 // moved to a column start so that no column is shared, and walk them
-// kBatch entries at a time: a running sum per column, added to the
+// BATCH entries at a time: a running sum per column, added to the
 // column's accumulator in shared memory when the column changes.
-// Software-pipelined: while one window is computed, the next window's
-// slab unit and entries are in flight to registers, and the next pair's
+// Software-pipelined: while one window is computed, PRE staging units of
+// the next window's slab and its entries are in flight to registers (the
+// rest of a wider slab is copied as it is staged), and the next pair's
 // indices, so no global load's latency sits between two windows; one
 // barrier per window, two stage buffers.
-template <bool SPLIT, bool FUSE, typename ColT, typename RowT>
+template <bool SPLIT, int OUT, int BATCH, int PRE, bool SKIP,
+          typename ColT, typename RowT>
 __device__ __forceinline__ void tmulti_block(
     int p_begin, int p_end, const int* __restrict__ pair_chunk,
     int chunk_base, Compact tiles, const __nv_bfloat16* __restrict__ slabs,
@@ -426,8 +477,7 @@ __device__ __forceinline__ void tmulti_block(
   const int rs = min(kCRS, R - r_base);         // the CTA's columns
   const size_t slab_row = static_cast<size_t>(SPLIT ? 2 : 1) * C;
   const int upr = C / 16;            // staging units per slab row
-  const int kk_u = tid / upr;        // this thread's first unit: row,
-  const int c_u = (tid % upr) * 8;   // and first column
+  const int n_units = kCKS * upr;    // staging units per window
   const ColT* __restrict__ col_ptr = static_cast<const ColT*>(tiles.col_ptr);
   const RowT* __restrict__ rows = static_cast<const RowT*>(tiles.rows);
   const Word* __restrict__ vals = static_cast<const Word*>(tiles.vals);
@@ -450,13 +500,28 @@ __device__ __forceinline__ void tmulti_block(
                            __ldg(cp), __ldg(cp + rs));
     }
   };
-  // A window's staging unit, this thread's share of its entries and, for
-  // thread r < rs, the bounds of column r's entries (CTA-relative).
-  Unit unit{};
+  // A window's first PRE staging units a thread (unit u = tid + i
+  // kThreads: slab row u_kk = u / upr, columns from u_c = (u % upr) * 8,
+  // found once; u_kk = kCKS past the window's units), this thread's share
+  // of its entries and, for thread r < rs, the bounds of column r's
+  // entries (CTA-relative).
+  Unit unit[PRE];
+  int u_kk[PRE], u_c[PRE];
+#pragma unroll
+  for (int i = 0; i < PRE; ++i) {
+    const int u = tid + i * kThreads;
+    u_kk[i] = u < n_units ? u / upr : kCKS;
+    u_c[i] = (u % upr) * 8;
+  }
   int e_c[kPer], e_t[kPer], col_a = 0, col_b = 0;
   auto load_data = [&](int q, int w0) {
     const int4 x = s_idx[q - seg0];
-    if (kk_u < ks) unit = load_unit<SPLIT>(slab_of(x.y, kk_u), c_u, C);
+#pragma unroll
+    for (int i = 0; i < PRE; ++i) {
+      if (u_kk[i] < ks) {
+        unit[i] = load_unit<SPLIT>(slab_of(x.y, u_kk[i]), u_c[i], C);
+      }
+    }
     const int n = min(x.w - x.z - w0, kCap);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -472,10 +537,28 @@ __device__ __forceinline__ void tmulti_block(
       col_b = static_cast<int>(__ldg(cp + tid + 1)) - x.z;
     }
   };
+  // Make the segment of staged indices hold pair q and, with SKIP,
+  // advance q past the pairs with no entry in the CTA's columns (the
+  // build's padding pairs, and tiles whose entries all lie in other
+  // column slices). Uniform over the CTA: q and the indices are shared.
+  int q = p_begin, w0 = 0;  // the window: pair q, CTA-relative entry w0
+  auto find_pair = [&]() {
+    for (; q < p_end; ++q) {
+      if (q >= seg0 + kSeg) {  // past the staged indices
+        __syncthreads();
+        seg0 = q;
+        load_seg();
+        __syncthreads();
+      }
+      if (!SKIP) break;
+      const int4 y = s_idx[q - seg0];
+      if (y.w > y.z) break;
+    }
+  };
 
   load_seg();
   __syncthreads();
-  int q = p_begin, w0 = 0;  // the window: pair q, CTA-relative entry w0
+  find_pair();
   if (q < p_end) load_data(q, 0);
   for (int win = 0; q < p_end; ++win) {
     const int buf = win & 1;
@@ -485,8 +568,11 @@ __device__ __forceinline__ void tmulti_block(
     int* split = s_split + buf * (kWorkers + 1);
     const int4 x = s_idx[q - seg0];
     // Their last readers finished before the previous window's barrier.
-    if (kk_u < ks) store_unit<SPLIT>(s, c_u, kk_u, C, unit);
-    for (int u = tid + kThreads; u < 2 * C; u += kThreads) {  // C > 128
+#pragma unroll
+    for (int i = 0; i < PRE; ++i) {
+      if (u_kk[i] < ks) store_unit<SPLIT>(s, u_c[i], u_kk[i], C, unit[i]);
+    }
+    for (int u = tid + PRE * kThreads; u < n_units; u += kThreads) {
       const int kk = u / upr, c0 = (u % upr) * 8;
       if (kk < ks) {
         store_unit<SPLIT>(s, c0, kk, C,
@@ -520,29 +606,22 @@ __device__ __forceinline__ void tmulti_block(
         }
       }
     }
-    // And the shares that begin past the last entry (all of them when the
-    // window is empty).
+    // And the shares that begin past the last entry.
     if (tid <= kWorkers && (tid * m + kWorkers - 1) / kWorkers >= m) {
       split[tid] = m;
     }
-    // Advance to the pair's next window, or the next pair, and prefetch.
+    // Advance to the pair's next window, or the next pair with entries,
+    // and prefetch.
     w0 += kCap;
     if (w0 >= x.w - x.z) {
       w0 = 0;
       ++q;
+      find_pair();
     }
-    if (q < p_end) {
-      if (q >= seg0 + kSeg) {  // past the staged indices
-        __syncthreads();
-        seg0 = q;
-        load_seg();
-        __syncthreads();
-      }
-      load_data(q, w0);
-    }
+    if (q < p_end) load_data(q, w0);
     __syncthreads();
     // Worker w (lanes kWorkerLanes w.., rows kk = kq..kq + kQ - 1 of
-    // lane kq / kQ) walks its run kBatch entries at a time; one shared
+    // lane kq / kQ) walks its run BATCH entries at a time; one shared
     // load brings a lane its kQ slab words (the swizzle keeps them
     // contiguous).
     const int kq = kQ * (lane % kWorkerLanes);
@@ -551,22 +630,22 @@ __device__ __forceinline__ void tmulti_block(
     int prev = e < end ? col[e] : -1;
     float run[kQ] = {};
     while (__any_sync(0xffffffffu, e < end)) {
-      int2 r[kBatch];
-      int cl[kBatch];
-      Word wd[kBatch][kQ];
+      int2 r[BATCH];
+      int cl[BATCH];
+      Word wd[BATCH][kQ];
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
+      for (int i = 0; i < BATCH; ++i) {
         if (e + i < end) {
           r[i] = rec[e + i];
           cl[i] = col[e + i];
         }
       }
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
+      for (int i = 0; i < BATCH; ++i) {
         if (e + i < end) load_words(s, r[i].x ^ kq, wd[i]);
       }
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
+      for (int i = 0; i < BATCH; ++i) {
         if (e + i < end) {
           if (cl[i] != prev) {  // the column changed: add its sums
             flush_run(s_acc + prev * kCKS + kq, run);
@@ -575,7 +654,7 @@ __device__ __forceinline__ void tmulti_block(
           fma_words(wd[i], r[i].y, run);
         }
       }
-      e += kBatch;
+      e += BATCH;
     }
     if (prev >= 0) flush_run(s_acc + prev * kCKS + kq, run);
   }
@@ -588,8 +667,19 @@ __device__ __forceinline__ void tmulti_block(
     acc[j] = s_acc[((r0 - r_base) + j) * kCKS + lane];
   }
   if (lane >= ks || ncol == 0) return;
+  if constexpr (OUT == kOutNatural) {
+    // (nb, R, k8): the warp's lanes write one r's 32 columns of k, 128
+    // contiguous bytes, per store.
+    float* o = reinterpret_cast<float*>(out) +
+               (static_cast<size_t>(b) * R + r0) * k8 + k_base + lane;
+#pragma unroll
+    for (int j = 0; j < kCCols; ++j) {
+      if (j < ncol) o[static_cast<size_t>(j) * k8] = acc[j];
+    }
+    return;
+  }
   const size_t row = static_cast<size_t>(b) * k8 + k_base + lane;
-  if (FUSE) {
+  if constexpr (OUT == kOutFused) {
     // Next chain state: bf16 hi | lo along the last axis, (nb, k8, 2R).
     __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out) +
                        row * (2 * R) + r0;
@@ -628,9 +718,10 @@ tmulti_kernel(const int* __restrict__ block_ptr,
               const __nv_bfloat16* __restrict__ slabs,
               void* __restrict__ out, int C, int R, int k8) {
   const int b = blockIdx.x;
-  tmulti_block<SPLIT, FUSE, ColT, RowT>(block_ptr[b], block_ptr[b + 1],
-                                        pair_chunk, 0, tiles, slabs, out, b,
-                                        C, R, k8);
+  tmulti_block<SPLIT, FUSE ? kOutFused : kOutT, kBatch, 1, kTmultiSkip,
+               ColT, RowT>(
+      block_ptr[b], block_ptr[b + 1], pair_chunk, 0, tiles, slabs, out, b, C,
+      R, k8);
 }
 
 // B6: CTA x owns the x-th (phase, local block) in phase order. Row i of
@@ -650,9 +741,24 @@ tmulti_phased_kernel(const int* __restrict__ phases, int n_phases,
   const int pair_off = phases[4 * ph];
   const int chunk_lo = phases[4 * ph + 1];
   const int* bp = block_ptr_ph + phases[4 * ph + 3] + (x - phases[4 * ph + 2]);
-  tmulti_block<SPLIT, false, ColT, RowT>(pair_off + bp[0], pair_off + bp[1],
-                                         pair_chunk_ph, chunk_lo, tiles,
-                                         slabs, partials, x, C, R, k8);
+  tmulti_block<SPLIT, kOutT, kBatch, 1, kTmultiSkip, ColT, RowT>(
+      pair_off + bp[0], pair_off + bp[1], pair_chunk_ph, chunk_lo, tiles,
+      slabs, partials, x, C, R, k8);
+}
+
+// B3 (SPLIT) and B4 bf16: CTA x owns output block x of the natural
+// layout, over the compact natural plane (the transpose of B1's).
+template <bool SPLIT, typename ColT, typename RowT>
+__global__ void __launch_bounds__(kThreads, kNaturalCtas)
+tmulti_natural_kernel(const int* __restrict__ block_ptr,
+                      const int* __restrict__ pair_chunk, Compact tiles,
+                      const __nv_bfloat16* __restrict__ slabs,
+                      float* __restrict__ out, int C, int R, int k8) {
+  const int b = blockIdx.x;
+  tmulti_block<SPLIT, kOutNatural, kNaturalBatch,
+               units_of<SPLIT>(kNaturalPrefetch), kNaturalSkip, ColT, RowT>(
+      block_ptr[b], block_ptr[b + 1], pair_chunk, 0, tiles, slabs, out, b, C,
+      R, k8);
 }
 
 // The dynamic shared-memory limit is a per-device attribute of each
@@ -708,6 +814,27 @@ cudaError_t launch_tmulti(const int* block_ptr, const int* pair_chunk,
 }
 
 template <bool SPLIT>
+cudaError_t launch_tmulti_natural(const int* block_ptr, const int* pair_chunk,
+                                  Compact tiles, int wide,
+                                  const __nv_bfloat16* slabs, float* out,
+                                  int nb, int C, int R, int k8,
+                                  cudaStream_t stream) {
+  return by_index_widths(wide, [&](auto col, auto row) {
+    using ColT = decltype(col);
+    using RowT = decltype(row);
+    static std::atomic<uint64_t> configured{0};
+    auto kernel = tmulti_natural_kernel<SPLIT, ColT, RowT>;
+    cudaError_t err =
+        set_smem_once(kernel, tmulti_smem_bytes<SPLIT>(kCMax), configured);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(nb, (k8 + kCKS - 1) / kCKS, (R + kCRS - 1) / kCRS);
+    kernel<<<grid, kThreads, tmulti_smem_bytes<SPLIT>(C), stream>>>(
+        block_ptr, pair_chunk, tiles, slabs, out, C, R, k8);
+    return cudaGetLastError();
+  });
+}
+
+template <bool SPLIT>
 cudaError_t launch_tmulti_phased(const int* phases, int n_phases,
                                  const int* block_ptr_ph,
                                  const int* pair_chunk_ph, Compact tiles,
@@ -730,7 +857,7 @@ cudaError_t launch_tmulti_phased(const int* phases, int n_phases,
   });
 }
 
-// ---- B3 / B4: natural-layout contraction ------------------------------
+// ---- B3 / B4 bf16 on dense tiles, for chunks past kCMax ----------------
 
 constexpr int kNRS = 128;  // tile rows per CTA (8 warps x one m16 tile)
 constexpr int kNCB = 128;  // contraction columns (of C) staged per step
@@ -1244,11 +1371,36 @@ int tmulti_phased_launch(const void* phases, int n_phases,
   return static_cast<int>(err);
 }
 
-// B3 / B4. block_ptr (nb + 1) and pair_chunk (P) int32; tiles (P, R,
-// planes*C) and slabs (n_chunks, k8, planes*C): mode 0 bf16 [hi | lo]
-// (B3), mode 1 bf16 (B4), mode 2 f32 (B4); out (nb, R, k8) f32. Requires
-// C % 128 == 0, R % 8 == 0, k8 % 8 == 0 and 16-byte aligned tiles and
-// slabs (checked by the wrapper).
+// B3 / B4 bf16 on the compact natural plane. block_ptr (nb + 1) and
+// pair_chunk (P) int32; the compact plane (nz_ptr, col_ptr, rows, vals;
+// index widths `wide`) of the natural tiles (P, R, planes*C); slabs
+// (n_chunks, k8, planes*C) bf16, [hi | lo] with split (B3), one plane
+// without (B4 bf16); out (nb, R, k8) f32. Same requirements as B1.
+int natural_compact_launch(const void* block_ptr, const void* pair_chunk,
+                           const void* nz_ptr, const void* col_ptr,
+                           const void* rows, const void* vals, int wide,
+                           const void* slabs, void* out, int nb, int C,
+                           int R, int k8, int split, void* stream) {
+  const int* bp = static_cast<const int*>(block_ptr);
+  const int* pc = static_cast<const int*>(pair_chunk);
+  const Compact t{static_cast<const int*>(nz_ptr), col_ptr, rows, vals};
+  const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(slabs);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      split ? launch_tmulti_natural<true>(bp, pc, t, wide, s, o, nb, C, R,
+                                          k8, st)
+            : launch_tmulti_natural<false>(bp, pc, t, wide, s, o, nb, C, R,
+                                           k8, st);
+  return static_cast<int>(err);
+}
+
+// B3 / B4 on dense natural tiles. block_ptr (nb + 1) and pair_chunk (P)
+// int32; tiles (P, R, planes*C) and slabs (n_chunks, k8, planes*C): mode
+// 0 bf16 [hi | lo] (B3) and mode 1 bf16 (B4) for chunks wider than the
+// compact kernel stages (C > kCMax), mode 2 f32 (B4); out (nb, R, k8)
+// f32. Requires C % 128 == 0, R % 8 == 0, k8 % 8 == 0 and 16-byte aligned
+// tiles and slabs (checked by the wrapper).
 int natural_launch(const void* block_ptr, const void* pair_chunk,
                    const void* tiles, const void* slabs, void* out, int nb,
                    int C, int R, int k8, int mode, void* stream) {

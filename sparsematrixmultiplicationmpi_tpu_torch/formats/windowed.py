@@ -315,21 +315,27 @@ def _signed16(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class CompactTiles:
-    """The nonzeros of a ``tiles_t``-shaped plane ``(P, planes * C, R)``:
-    the tile operand kernels B1 and B6 read on the card, where a
-    ``WindowedPairs`` copy keeps it in place of the dense ``tiles_t``
-    (``WindowedPairs.to``).
+    """The nonzeros of a tile plane: the tile operand the compact kernels
+    read on the card, where a ``WindowedPairs`` copy keeps it in place of
+    the dense plane (``WindowedPairs.to``). Two orientations of one
+    layout:
 
-    Entries are stored per tile, column-major by output column: pair,
-    then ``r``, then the contraction index ``c``, all ascending. An entry
-    is any ``(c, r)`` at which some plane's bit pattern is non-zero, so
-    ``to_dense`` gives the plane back bit for bit.
+    * a ``tiles_t``-shaped plane ``(P, planes * C, R)`` (B1, B6);
+    * with ``natural``, a natural plane ``(P, R, planes * C)``, the
+      ``tiles_split`` or ``tiles`` of a U=2 operand (B3, B4 bf16). A
+      natural tile is the transpose of a ``tiles_t`` tile, so its arrays
+      are exactly those of ``from_dense`` of the transposed plane.
+
+    Entries are stored per tile by output index: pair, then ``r``, then
+    the contraction index ``c``, all ascending. An entry is any ``(c, r)``
+    at which some plane's bit pattern is non-zero, so ``to_dense`` gives
+    the plane back bit for bit.
 
     * ``pair_nz_ptr`` (P + 1) int32: the global offset of each pair's
       first entry, so a run of pairs ``[a, b)`` is ``self[a:b]``, a slice
       of this and of ``col_ptr`` over the same entries;
-    * ``col_ptr`` (P, R + 1): each column's entries within its pair,
-      ``uint16`` while ``C * R <= 65535``, else int32;
+    * ``col_ptr`` (P, R + 1): each output index's entries within its
+      pair, ``uint16`` while ``C * R <= 65535``, else int32;
     * ``rows`` (nnz,): ``c``, ``uint8`` for ``C <= 256``, else int16;
     * ``vals`` (nnz,): with ``split`` the bf16 hi and lo bits packed into
       one int32 (``hi | lo << 16``), so one 32-bit load brings both;
@@ -346,6 +352,15 @@ class CompactTiles:
     vals: object
     chunk_cols: int
     split: bool
+    natural: bool = False
+
+    @classmethod
+    def from_natural(cls, tiles, split: bool) -> "CompactTiles":
+        """The compact plane of a dense natural plane ``(P, R, planes *
+        C)`` (numpy, bf16 as ``uint16`` bits, or a tensor), built on the
+        host from a transposed view of it, without a transposed copy."""
+        ct = cls.from_dense(_host_bits(tiles).swapaxes(1, 2), split)
+        return dataclasses.replace(ct, natural=True)
 
     @classmethod
     def from_dense(cls, tiles_t, split: bool) -> "CompactTiles":
@@ -382,9 +397,11 @@ class CompactTiles:
 
     @property
     def shape(self) -> Tuple[int, int, int]:
-        """The dense plane's shape ``(P, planes * C, R)``."""
+        """The dense plane's shape: ``(P, planes * C, R)``, or ``(P, R,
+        planes * C)`` when ``natural``."""
         P, R1 = self.col_ptr.shape
-        return (P, (2 if self.split else 1) * self.chunk_cols, R1 - 1)
+        CW = (2 if self.split else 1) * self.chunk_cols
+        return (P, R1 - 1, CW) if self.natural else (P, CW, R1 - 1)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -433,38 +450,51 @@ class CompactTiles:
             vals=_as_torch(self.vals).to(device))
 
     def to_dense(self):
-        """The dense plane ``(P, planes * C, R)``, where the arrays lie: a
-        tensor on their device, numpy (bf16 as ``uint16`` bits) on the
-        host."""
+        """The dense plane of ``shape``, where the arrays lie: a tensor on
+        their device, numpy (bf16 as ``uint16`` bits) on the host."""
         host = not isinstance(self.vals, torch.Tensor)
         ptr = _as_torch(self.pair_nz_ptr).long()
         cp = _as_torch(self.col_ptr, unsigned16=True).long()
         if _dtype_is(self.col_ptr, np.uint16, torch.int16):
             cp = cp & 0xFFFF
-        P, CW, R = self.shape
+        P, R = cp.shape[0], cp.shape[1] - 1
         C, dev = self.chunk_cols, ptr.device
         lo, hi = int(ptr[0]), int(ptr[-1])
         pr = torch.repeat_interleave(
             torch.arange(P * R, device=dev), (cp[:, 1:] - cp[:, :-1]).reshape(-1))
         p, r = pr // R, pr % R
         c = _as_torch(self.rows)[lo:hi].long()
+
+        def at(c):  # the dense index of (p, c, r)
+            return (p, r, c) if self.natural else (p, c, r)
+
         vals = _as_torch(self.vals)[lo:hi]
         if self.split:
             v = vals.long()
-            out = torch.zeros((P, CW, R), dtype=torch.int16, device=dev)
-            out[p, c, r] = _signed16(v)
-            out[p, C + c, r] = _signed16(v >> 16)
+            out = torch.zeros(self.shape, dtype=torch.int16, device=dev)
+            out[at(c)] = _signed16(v)
+            out[at(C + c)] = _signed16(v >> 16)
             out = out.view(torch.bfloat16)
         else:
-            out = torch.zeros((P, CW, R), dtype=vals.dtype, device=dev)
-            out[p, c, r] = vals
+            out = torch.zeros(self.shape, dtype=vals.dtype, device=dev)
+            out[at(c)] = vals
         return _host_bits(out) if host else out
 
 
-def _compact(tiles_t, split: bool) -> CompactTiles:
-    if isinstance(tiles_t, CompactTiles):
-        return tiles_t
-    return CompactTiles.from_dense(tiles_t, split)
+#: Widest chunk the compact kernels (B1, B3, B4 bf16, B6) stage
+#: (``kCMax`` in ``csrc/windowed_kernels.cu``). A U=2 card copy of a wider
+#: chunk keeps its dense natural planes, which the dense kernel reads.
+COMPACT_MAX_C = 512
+
+
+def dense_plane(x):
+    """A tile plane as the plain versions read it: a ``CompactTiles``
+    densified (``to_dense``), a dense plane as it is."""
+    return x.to_dense() if isinstance(x, CompactTiles) else x
+
+
+def _plane_dtype(x) -> torch.dtype:
+    return x.dtype if isinstance(x, CompactTiles) else array_dtype(x)
 
 
 def _pair_cost_s(R: int, C: int, itemsize: int, k_nominal: int,
@@ -732,12 +762,15 @@ class WindowedPairs:
     undoes the permutation.
     """
 
-    tiles: Optional[np.ndarray]     # (P, R, C); None in some card copies
+    #: (P, R, C); None in some card copies, its natural ``CompactTiles``
+    #: in a card copy of a bf16 U=2 operand (``to``).
+    tiles: Optional[np.ndarray]
     pair_chunk: np.ndarray          # (P,) int32
     pair_block: np.ndarray          # (P,) int32, ascending
     block_ptr: np.ndarray           # (nb + 1,) int32 pair run bounds
     #: Lane-packed bf16 hi|lo split of f32 tiles, (P, R, 2C); None for
-    #: other dtypes.
+    #: other dtypes. A card copy of a U=2 operand holds its natural
+    #: ``CompactTiles`` instead (``to``).
     tiles_split: Optional[np.ndarray]
     spill: Optional[BucketedELL]
     perm: Optional[np.ndarray]      # (m,) int32 or None
@@ -778,12 +811,10 @@ class WindowedPairs:
         """The tiles' dtype (f32 for split planes), from whichever plane
         the copy holds."""
         if self.tiles is not None:
-            return array_dtype(self.tiles)
+            return _plane_dtype(self.tiles)
         if self.split:
             return torch.float32
-        if isinstance(self.tiles_t, CompactTiles):
-            return self.tiles_t.dtype
-        return array_dtype(self.tiles_t)
+        return _plane_dtype(self.tiles_t)
 
     @property
     def n_pairs(self) -> int:
@@ -848,21 +879,31 @@ class WindowedPairs:
     def to(self, device) -> "WindowedPairs":
         """A copy whose arrays are torch tensors on ``device`` (bf16
         planes as ``torch.bfloat16``). A CUDA copy leaves behind, as
-        ``None``, the natural planes no kernel of its route reads:
-        ``tiles``/``tiles_split`` where the kernels read only ``tiles_t``
-        (U>2, ``R % 128 == 0``), ``tiles`` of an f32 U=2 operand (its
-        kernel B3 reads ``tiles_split``). In the first case it holds, in
-        place of the dense ``tiles_t``, its ``CompactTiles`` (built here
-        on the host, once per operand): B1 and B6 read only that. The
-        plain path rebuilds its tiles from the planes kept when a route
-        needs them. The host arrays are left as they are.
+        ``None``, the planes no kernel of its route reads, and holds the
+        plane its kernels read as its ``CompactTiles`` (built here on the
+        host, once per operand):
+
+        * U>2 with ``R % 128 == 0``: ``tiles_t``'s plane, for B1 and B6;
+          ``tiles`` and ``tiles_split`` dropped;
+        * U=2 f32: ``tiles_split``'s natural plane, for B3; ``tiles``
+          dropped;
+        * U=2 bf16: ``tiles``' natural plane, for B4.
+
+        The U=2 planes are compacted only while ``chunk_cols <=
+        COMPACT_MAX_C``, the widest chunk the compact kernels stage; a
+        wider chunk keeps the dense natural planes, which the dense
+        natural kernel reads. A U=2 one-plane f32 operand keeps its dense
+        ``tiles`` (B4 f32). The plain path rebuilds its tiles from the
+        planes kept. The host arrays are left as they are.
 
         Moving a U=2 operand to a CUDA device audits, on the host arrays,
         the two-pair kernels' contract (pairs ``2s`` and ``2s+1`` share a
         row block), as the reference's dispatch does, and raises when it
         is violated."""
         device = torch.device(device)
-        if device.type == "cuda" and self.pairs_per_step <= 2:
+        cuda = device.type == "cuda"
+        two_pair = cuda and self.pairs_per_step <= 2
+        if two_pair:
             pb = self.pair_block
             if isinstance(pb, np.ndarray) and (
                     len(pb) % 2 or np.any(pb[0::2] != pb[1::2])):
@@ -870,24 +911,27 @@ class WindowedPairs:
                     "two-pair kernel contract violated: per-block pair "
                     "runs must be padded to even length "
                     "(WindowedPairs.from_csr pairs_per_step=2 branch)")
-        kernel_only = (device.type == "cuda" and self.pairs_per_step > 2
-                       and self.tiles_t is not None
-                       and self.block_rows % 128 == 0)
-        if kernel_only:
-            dropped = ("tiles", "tiles_split")
-        elif (device.type == "cuda" and self.pairs_per_step <= 2
-              and self.tiles_split is not None):
+        dropped, compact = (), {}  # compact: field -> natural orientation
+        narrow = self.chunk_cols <= COMPACT_MAX_C
+        if (cuda and self.pairs_per_step > 2 and self.tiles_t is not None
+                and self.block_rows % 128 == 0):
+            dropped, compact = ("tiles", "tiles_split"), {"tiles_t": False}
+        elif two_pair and self.tiles_split is not None:
             dropped = ("tiles",)
-        else:
-            dropped = ()
-        fields = {f: None if f in dropped else to_tensor(getattr(self, f),
-                                                         device)
-                  for f in self._ARRAYS if f != "tiles_t"}
-        tiles_t = self.tiles_t
-        if kernel_only or isinstance(tiles_t, CompactTiles):
-            fields["tiles_t"] = _compact(tiles_t, self.split).to(device)
-        else:
-            fields["tiles_t"] = to_tensor(tiles_t, device)
+            if narrow:
+                compact = {"tiles_split": True}
+        elif two_pair and narrow and self.dtype == torch.bfloat16:
+            compact = {"tiles": True}
+        fields = {}
+        for f in self._ARRAYS:
+            x = getattr(self, f)
+            if f in dropped:
+                x = None
+            elif f in compact and not isinstance(x, CompactTiles):
+                x = (CompactTiles.from_natural if compact[f]
+                     else CompactTiles.from_dense)(x, self.split)
+            fields[f] = (x.to(device) if isinstance(x, CompactTiles)
+                         else to_tensor(x, device))
         return dataclasses.replace(
             self,
             spill=None if self.spill is None else self.spill.to(device),

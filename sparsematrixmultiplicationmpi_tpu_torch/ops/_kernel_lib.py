@@ -135,6 +135,10 @@ def load_library() -> ctypes.CDLL:
         lib.natural_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                        i32, i32, i32, ptr]
         lib.natural_launch.restype = i32
+        lib.natural_compact_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                               i32, ptr, ptr, i32, i32, i32,
+                                               i32, i32, ptr]
+        lib.natural_compact_launch.restype = i32
         lib.ell_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                           ptr]
         lib.ell_gather_launch.restype = i32

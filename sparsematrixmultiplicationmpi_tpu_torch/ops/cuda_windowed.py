@@ -25,10 +25,14 @@ Five kernels from ``csrc/windowed_kernels.cu``:
 Each wrapper takes its plain version (``*_plain``, same module) for a
 tensor on the CPU and launches its kernel for a CUDA tensor — there is no
 fallback from one to the other — and counts its kernel launches in
-``<wrapper>.launches``. The plain versions of B1 and B6 mirror the JAX
-package on dense tiles (a ``CompactTiles`` operand on the CPU is
-densified first); their kernels take only the compact plane, and a dense
-``tiles_t`` off the CPU raises. ``spmm_windowed_cuda`` is the JAX package's
+``<wrapper>.launches``. The plain versions mirror the JAX package on
+dense tiles (a ``CompactTiles`` operand on the CPU is densified first).
+On the card B1 and B6 take only the compact plane of ``tiles_t``, B3 and
+B4 bf16 only the natural compact plane of their tiles while ``C <=
+COMPACT_MAX_C`` (512, the widest chunk the compact kernels stage), and a
+dense plane there raises; a wider chunk's dense natural planes go to the
+dense natural kernel (which refuses a compact one). B4 f32 reads dense
+f32 tiles. ``spmm_windowed_cuda`` is the JAX package's
 ``spmm_windowed_pallas``: one-shot SpMM through B2 then B1, B6, B3 or B4.
 """
 
@@ -40,7 +44,8 @@ import itertools
 import torch
 
 from ..formats.windowed import (
-    RESIDENT_SLAB_VMEM_BYTES, CompactTiles, WindowedPairs,
+    COMPACT_MAX_C, RESIDENT_SLAB_VMEM_BYTES, CompactTiles, WindowedPairs,
+    dense_plane,
 )
 from ._kernel_lib import check_launch, load_library
 
@@ -181,29 +186,22 @@ def windowed_matmul_tmulti_plain(pair_block, pair_chunk, tiles_t, slabs, *,
     return out
 
 
-def _dense(tiles_t):
-    """The dense plane a plain version reads."""
-    if isinstance(tiles_t, CompactTiles):
-        return tiles_t.to_dense()
-    return tiles_t
-
-
-#: Widest chunk the B1 / B6 kernels stage (``kCMax`` in the source).
-_TMULTI_MAX_C = 512
-
-
-def _compact_operand(name, tiles_t, slabs, *, C, R, k8, split) -> tuple:
-    """The B1 / B6 kernel's tile operand as its launch arguments (the
-    four arrays' data pointers and the index widths), checked: a
-    ``CompactTiles`` on the slabs' CUDA device. A dense ``tiles_t`` there
-    raises: the kernels read the compact plane, which ``WindowedPairs.to``
-    builds once per operand, and nothing compacts per call. The plane's
-    arrays are checked once, when a plane first reaches a kernel; the
-    arguments are kept on it."""
+def _compact_operand(name, tiles_t, slabs, *, C, R, k8, split,
+                     natural=False) -> tuple:
+    """A compact kernel's tile operand as its launch arguments (the four
+    arrays' data pointers and the index widths), checked: a
+    ``CompactTiles`` on the slabs' CUDA device, in the kernel's
+    orientation (``natural`` for B3 / B4 bf16, else B1 / B6's
+    ``tiles_t``), bf16. A dense plane there raises: the kernels read the
+    compact plane, which ``WindowedPairs.to`` builds once per operand, and
+    nothing compacts per call. The plane's arrays are checked once, when
+    a plane first reaches a kernel; the arguments are kept on it."""
     if not isinstance(tiles_t, CompactTiles):
+        what, how = (("natural plane", "from_natural") if natural
+                     else ("tiles_t", "from_dense"))
         raise ValueError(
-            f"no kernel for a dense tiles_t on {slabs.device}: {name} reads "
-            "the compact plane (CompactTiles.from_dense, which "
+            f"no kernel for a dense {what} on {slabs.device}: {name} reads "
+            f"the compact plane (CompactTiles.{how}, which "
             "WindowedPairs.to builds once per operand)")
     _on_kernel_device(slabs)
     cached = tiles_t.__dict__.get("_kernel_args")  # frozen: no setattr
@@ -217,16 +215,19 @@ def _compact_operand(name, tiles_t, slabs, *, C, R, k8, split) -> tuple:
         cached = (slabs.device, *(x.data_ptr() for x in arrays),
                   tiles_t.wide)
         tiles_t.__dict__["_kernel_args"] = cached
-    _require(tiles_t.split == split,
-             f"{name} kernel: a compact plane with split={tiles_t.split} "
-             f"given split={split}")
+    _require(tiles_t.split == split and tiles_t.natural == natural
+             and tiles_t.dtype == torch.bfloat16,
+             f"{name} kernel: a compact plane with split={tiles_t.split}, "
+             f"natural={tiles_t.natural}, {tiles_t.dtype} given split="
+             f"{split}; the kernel reads a bf16 plane with natural="
+             f"{natural}")
     _require(slabs.dtype == torch.bfloat16 and slabs.is_contiguous()
              and slabs.data_ptr() % 16 == 0,
              f"{name} kernel: slabs must be a contiguous, 16-byte aligned "
              f"bf16 tensor, got {slabs.dtype}")
-    _require(C % 128 == 0 and C <= _TMULTI_MAX_C and R % 8 == 0
+    _require(C % 128 == 0 and C <= COMPACT_MAX_C and R % 8 == 0
              and k8 % 8 == 0,
-             f"{name} kernel needs C % 128 == 0, C <= {_TMULTI_MAX_C}, "
+             f"{name} kernel needs C % 128 == 0, C <= {COMPACT_MAX_C}, "
              f"R % 8 == 0 and k8 % 8 == 0, got C={C}, R={R}, k8={k8}")
     return cached[1:]
 
@@ -259,7 +260,7 @@ def windowed_matmul_tmulti(pair_block, pair_chunk, block_ptr, tiles_t,
                               fuse_resplit=fuse_resplit)
     if slabs.device.type == "cpu":
         return windowed_matmul_tmulti_plain(
-            pair_block, pair_chunk, _dense(tiles_t), slabs, nb=nb,
+            pair_block, pair_chunk, dense_plane(tiles_t), slabs, nb=nb,
             split=split, fuse_resplit=fuse_resplit)
     plane = _compact_operand("windowed_matmul_tmulti", tiles_t, slabs, C=C,
                              R=R, k8=k8, split=split)
@@ -361,7 +362,7 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
              f"(split={split})")
     if slabs.device.type == "cpu":
         return windowed_matmul_tmulti_phased_plain(
-            pair_block_ph, pair_chunk_ph, _dense(tiles_t), slabs, nb=nb,
+            pair_block_ph, pair_chunk_ph, dense_plane(tiles_t), slabs, nb=nb,
             phases=phases, split=split)
     plane = _compact_operand("windowed_matmul_tmulti_phased", tiles_t,
                              slabs, C=C, R=R, k8=k8, split=split)
@@ -405,7 +406,8 @@ windowed_matmul_tmulti_phased.launches = 0
 # ---- B3 / B4: natural-layout two-pair contractions ----------------------
 
 def _natural_checks(name, pair_block, tiles, slabs, *, planes: int):
-    """The JAX wrappers' contract checks; returns (R, C, k8)."""
+    """The JAX wrappers' contract checks; returns (R, C, k8). ``tiles``
+    dense or its natural ``CompactTiles``."""
     P, R, CW = tiles.shape
     C = CW // planes
     _require(P % 2 == 0,
@@ -418,11 +420,36 @@ def _natural_checks(name, pair_block, tiles, slabs, *, planes: int):
     return R, C, slabs.shape[1]
 
 
+def _natural_compact(wrapper, pair_chunk, block_ptr, tiles, slabs, *, nb, R,
+                     C, k8, split: bool) -> torch.Tensor:
+    """B3 / B4 bf16 on the card, on the natural compact plane ``tiles``,
+    counted in ``wrapper.launches``."""
+    name = wrapper.__name__
+    plane = _compact_operand(name, tiles, slabs, C=C, R=R, k8=k8,
+                             split=split, natural=True)
+    dev = slabs.device
+    _int32_on(name, dev, pair_chunk=pair_chunk, block_ptr=block_ptr)
+    _require(block_ptr.shape[0] == nb + 1, "block_ptr length != nb + 1")
+    out = torch.empty((nb, R, k8), dtype=torch.float32, device=dev)
+    if out.numel():
+        err = load_library().natural_compact_launch(
+            block_ptr.data_ptr(), pair_chunk.data_ptr(), *plane,
+            slabs.data_ptr(), out.data_ptr(), nb, C, R, k8, int(split),
+            _stream(slabs))
+        check_launch(name, err)
+        wrapper.launches += 1
+    return out
+
+
 def _natural_launch(wrapper, pair_chunk, block_ptr, tiles, slabs, *, nb, R,
                     C, k8, mode: int, dtype: torch.dtype) -> torch.Tensor:
-    """B3 / B4 on the card for ``wrapper``, counted in its ``launches``."""
+    """The dense natural kernels on the card for ``wrapper`` (B3 / B4
+    bf16 past ``COMPACT_MAX_C``, B4 f32), counted in its ``launches``."""
     name = wrapper.__name__
     dev = slabs.device
+    _require(isinstance(tiles, torch.Tensor),
+             f"{name}: the dense natural kernel reads dense tiles; a compact "
+             f"plane is read only while C <= {COMPACT_MAX_C}, got C={C}")
     for arg, x, dt in (("tiles", tiles, dtype), ("slabs", slabs, dtype),
                        ("pair_chunk", pair_chunk, torch.int32),
                        ("block_ptr", block_ptr, torch.int32)):
@@ -466,14 +493,21 @@ def windowed_matmul_split3(pair_block, pair_chunk, block_ptr, tiles_split,
     itself; here the caller passes its ``split=True`` slabs).
 
     ``tiles_split``: (P, R, 2C) bf16 ``[hi | lo]``, block-sorted with
-    even per-block runs (``P`` even, checked); ``block_ptr`` (nb + 1)
-    bounds each block's run (the kernel's work list); ``slabs``:
-    (n_chunks, k8, 2C) bf16 from ``chunk_slabs(split=True)``."""
+    even per-block runs (``P`` even, checked): on the card its natural
+    ``CompactTiles`` while ``C <= COMPACT_MAX_C`` (a dense plane there
+    raises), dense past it (the dense kernel); dense or compact on the
+    CPU (densified). ``block_ptr`` (nb + 1) bounds each block's run (the
+    kernel's work list); ``slabs``: (n_chunks, k8, 2C) bf16 from
+    ``chunk_slabs(split=True)``."""
     R, C, k8 = _natural_checks("windowed_matmul_split3", pair_block,
                                tiles_split, slabs, planes=2)
     if not _on_kernel_device(slabs):
-        return windowed_matmul_split3_plain(pair_block, pair_chunk,
-                                            tiles_split, slabs, nb=nb)
+        return windowed_matmul_split3_plain(
+            pair_block, pair_chunk, dense_plane(tiles_split), slabs, nb=nb)
+    if C <= COMPACT_MAX_C:
+        return _natural_compact(windowed_matmul_split3, pair_chunk,
+                                block_ptr, tiles_split, slabs, nb=nb, R=R,
+                                C=C, k8=k8, split=True)
     return _natural_launch(windowed_matmul_split3, pair_chunk, block_ptr,
                            tiles_split, slabs, nb=nb, R=R, C=C, k8=k8,
                            mode=0, dtype=torch.bfloat16)
@@ -501,15 +535,22 @@ def windowed_matmul_single(pair_block, pair_chunk, block_ptr, tiles, slabs,
     full f32 precision, bf16 tiles with f32 accumulation; the slabs are
     cast to the tiles' dtype first, as the reference does (the kernel
     takes them already cast). ``tiles``: (P, R, C), even per-block runs
-    (``P`` even, checked); ``slabs``: (n_chunks, k8, C)."""
+    (``P`` even, checked); on the card bf16 tiles are their natural
+    ``CompactTiles`` while ``C <= COMPACT_MAX_C`` (a dense bf16 plane
+    there raises) and dense past it, f32 tiles dense; ``slabs``:
+    (n_chunks, k8, C)."""
     R, C, k8 = _natural_checks("windowed_matmul_single", pair_block, tiles,
                                slabs, planes=1)
     if not _on_kernel_device(slabs):
-        return windowed_matmul_single_plain(pair_block, pair_chunk, tiles,
-                                            slabs, nb=nb)
+        return windowed_matmul_single_plain(
+            pair_block, pair_chunk, dense_plane(tiles), slabs, nb=nb)
     _require(tiles.dtype in (torch.float32, torch.bfloat16),
              f"windowed_matmul_single kernel takes float32 or bfloat16 "
              f"tiles, got {tiles.dtype}")
+    if tiles.dtype == torch.bfloat16 and C <= COMPACT_MAX_C:
+        return _natural_compact(windowed_matmul_single, pair_chunk,
+                                block_ptr, tiles, slabs, nb=nb, R=R, C=C,
+                                k8=k8, split=False)
     return _natural_launch(windowed_matmul_single, pair_chunk, block_ptr,
                            tiles, slabs, nb=nb, R=R, C=C, k8=k8,
                            mode=2 if tiles.dtype == torch.float32 else 1,

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..formats.windowed import KPAD_MIN_K, CompactTiles, WindowedPairs
+from ..formats.windowed import KPAD_MIN_K, WindowedPairs, dense_plane
 from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
@@ -64,14 +64,12 @@ def _plain_pairs(wp: WindowedPairs):
     global block and chunk ids; its dummy tiles are zero."""
     C = wp.chunk_cols
     if wp.tiles is not None:
-        return wp.tiles, wp.pair_block, wp.pair_chunk
+        return dense_plane(wp.tiles), wp.pair_block, wp.pair_chunk
     if wp.tiles_t is None:  # U=2 f32: the natural split planes
-        t = wp.tiles_split
+        t = dense_plane(wp.tiles_split)
         return (t[..., :C].to(torch.float32) + t[..., C:].to(torch.float32),
                 wp.pair_block, wp.pair_chunk)
-    t = wp.tiles_t
-    if isinstance(t, CompactTiles):
-        t = t.to_dense()
+    t = dense_plane(wp.tiles_t)
     if wp.split:
         t = t[:, :C].to(torch.float32) + t[:, C:].to(torch.float32)
     t = t.transpose(1, 2)

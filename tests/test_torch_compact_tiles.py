@@ -1,8 +1,9 @@
 """The compact tile plane (``formats/windowed.py::CompactTiles``) that
-kernels B1 and B6 read on the card, on the CPU: its round trip, the
-plain B1 / B6 on it against the JAX package's kernels in interpret mode,
-the host operand it leaves untouched, and the wrappers' refusal of a
-dense plane off the CPU.
+kernels B1 and B6 read on the card, and its natural orientation that B3
+and B4 bf16 read, on the CPU: its round trip, the plain B1 / B6 on it
+against the JAX package's kernels in interpret mode, the host operand it
+leaves untouched, and the wrappers' refusal of a dense plane off the
+CPU.
 
 Tolerances: the round trip is bitwise (an entry is any position where a
 plane's bits are non-zero). The plain versions densify the plane and
@@ -305,3 +306,77 @@ def test_plain_path_on_a_copy_holding_the_compact_plane(name):
         enc, body, dec = TOW.windowed_t_chain(op, 16)
         states.append(dec(body(body(enc(v, op), op), op), op))
     assert torch.equal(*states)
+
+
+#: U=2 builds of the JAX package (the two-pair route's families): R = 8,
+#: R = 16, R = 128, and C = 512 at R = 256 (int16 rows, int32 column
+#: offsets).
+U2_FAMILIES = {
+    "fem-R16": (lambda g: g.fem3d_csr(256, 4096, seed=0),
+                dict(block_rows=16, chunk_cols=128)),
+    "fem-R8": (lambda g: g.fem3d_csr(512, 8192, seed=2),
+               dict(block_rows=8, chunk_cols=128, allow_spill=False)),
+    "banded-R128": (lambda g: g.banded_csr(512, 24, 8, seed=4),
+                    dict(block_rows=128, chunk_cols=128)),
+    "fem-C512": (lambda g: g.fem3d_csr(1024, 16000, seed=8),
+                 dict(block_rows=256, chunk_cols=512)),
+}
+
+
+def _u2_port(name, dtype):
+    make, kw = U2_FAMILIES[name]
+    csr = make(JG).astype(jnp.bfloat16 if dtype == "bfloat16" else dtype)
+    pinned = {**PINNED, **kw}
+    jw = JW.WindowedPairs.from_csr(csr, pairs_per_step=2, **pinned)
+    return _port(jw)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("name", sorted(U2_FAMILIES))
+def test_natural_plane_round_trip_is_bitwise(name, dtype):
+    """The natural plane of a U=2 operand's ``tiles_split`` (f32) or
+    ``tiles`` (bf16): the arrays of ``from_dense`` of the transposed
+    planes, the natural shape, and the planes back bit for bit, on the
+    host and as CPU tensors."""
+    tw = _u2_port(name, dtype)
+    split = dtype == np.float32
+    plane = tw.tiles_split if split else tw.tiles
+    assert plane is not None and plane.dtype == np.uint16
+    ct = CompactTiles.from_natural(plane, split)
+    ref = CompactTiles.from_dense(np.ascontiguousarray(
+        plane.swapaxes(1, 2)), split)
+    for f in ("pair_nz_ptr", "col_ptr", "rows", "vals"):
+        a, b = getattr(ct, f), getattr(ref, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    P, R, CW = plane.shape
+    C = tw.chunk_cols
+    assert ct.natural and not ref.natural and ct.split == split
+    assert ct.shape == plane.shape and ref.shape == (P, CW, R)
+    assert ct.wide == (int(C * R > 65535) | int(C > 256) << 1)
+    if name == "fem-C512":
+        assert ct.wide == 3
+    if name == "fem-R8":
+        assert R == 8
+    np.testing.assert_array_equal(ct.to_dense(), plane)
+    np.testing.assert_array_equal(
+        ct.to("cpu").to_dense().view(torch.int16).numpy().view(np.uint16),
+        plane)
+    half = P // 2
+    np.testing.assert_array_equal(ct[half:].to_dense(), plane[half:])
+    # From a CPU tensor, the same arrays.
+    t = ct.to("cpu")
+    again = CompactTiles.from_natural(t.to_dense(), split)
+    for f in ("pair_nz_ptr", "col_ptr", "rows", "vals"):
+        np.testing.assert_array_equal(getattr(again, f), getattr(ct, f))
+
+
+def test_off_the_card_copies_keep_the_dense_natural_planes():
+    """Off the card nothing is compacted, and the gate of ``to`` is
+    ``COMPACT_MAX_C``: the widest chunk the compact kernels stage."""
+    assert TW.COMPACT_MAX_C == 512
+    tw = _u2_port("fem-R16", np.float32)
+    for dev in ("cpu", "meta"):
+        copy = tw.to(dev)
+        assert isinstance(copy.tiles_split, torch.Tensor)
+        assert isinstance(copy.tiles, torch.Tensor)

@@ -442,21 +442,28 @@ def _u2(csr, R, C):
 
 
 def _natural_case(host, mode, v_p, dev):
-    """(kernel, plain, tiles, slabs) of one two-pair mode."""
+    """(kernel, plain, tiles, dense, slabs) of one two-pair mode: the
+    kernel's tile operand (split3 and bf16: the natural compact plane,
+    what ``to`` keeps on a card; f32: the dense tiles) and the dense
+    plane the plain version reads."""
     C = host.chunk_cols
     if mode == "split3":
-        tiles = torch.from_numpy(host.tiles_split.view(np.int16)).to(
-            dev).view(torch.bfloat16)
+        tiles = CompactTiles.from_natural(host.tiles_split, True).to(dev)
         slabs = cw.chunk_slabs(v_p, C=C, split=True)
         return (cw.windowed_matmul_split3, cw.windowed_matmul_split3_plain,
-                tiles, slabs)
+                tiles, tiles.to_dense(), slabs)
     dtype = torch.bfloat16 if mode == "bf16" else torch.float32
-    tiles = torch.from_numpy(host.tiles).to(dev).to(dtype)
     slabs = cw.chunk_slabs(v_p.to(dtype).contiguous(), C=C, split=False)
+    if mode == "bf16":
+        tiles = CompactTiles.from_natural(
+            torch.from_numpy(host.tiles).to(dtype), False).to(dev)
+        return (cw.windowed_matmul_single, cw.windowed_matmul_single_plain,
+                tiles, tiles.to_dense(), slabs)
+    tiles = torch.from_numpy(host.tiles).to(dev).to(dtype)
     if mode == "f32-full":
         tiles, slabs = _full_mantissa(tiles, 0), _full_mantissa(slabs, 1)
     return (cw.windowed_matmul_single, cw.windowed_matmul_single_plain,
-            tiles, slabs)
+            tiles, tiles, slabs)
 
 
 def _full_mantissa(x, seed):
@@ -481,14 +488,14 @@ def test_natural_kernels_match_plain(cuda, mode, R, C, k):
     wp = host.to(cuda)
     v = generate_fat_vector(1024, k, seed=R + C + k).astype(np.float32)
     v_p = wp.encode(torch.from_numpy(v).to(cuda)).contiguous()
-    kernel, plain, tiles, slabs = _natural_case(host, mode, v_p, cuda)
+    kernel, plain, tiles, dense, slabs = _natural_case(host, mode, v_p, cuda)
     cw.reset_launch_counts()
     got = kernel(wp.pair_block, wp.pair_chunk, wp.block_ptr, tiles, slabs,
                  nb=wp.n_blocks)
     name = "B3" if mode == "split3" else "B4"
     assert cw.launch_counts() == _counts(**{"B2": 0, name: 1})
-    want = plain(wp.pair_block, wp.pair_chunk, tiles, slabs, nb=wp.n_blocks)
-    cond = plain(wp.pair_block, wp.pair_chunk, tiles.abs(), slabs.abs(),
+    want = plain(wp.pair_block, wp.pair_chunk, dense, slabs, nb=wp.n_blocks)
+    cond = plain(wp.pair_block, wp.pair_chunk, dense.abs(), slabs.abs(),
                  nb=wp.n_blocks)
     torch.cuda.synchronize()
     assert got.shape == (wp.n_blocks, R, k)
@@ -500,7 +507,7 @@ def test_natural_kernel_empty_run_writes_zeros(cuda):
     wp = host.to(cuda)
     v_p = wp.encode(torch.from_numpy(generate_fat_vector(
         1024, 8, seed=1).astype(np.float32)).to(cuda)).contiguous()
-    kernel, _, tiles, slabs = _natural_case(host, "split3", v_p, cuda)
+    kernel, _, tiles, _, slabs = _natural_case(host, "split3", v_p, cuda)
     bp = wp.block_ptr.clone()
     bp[1] = bp[0]  # block 0's run becomes empty
     out = kernel(wp.pair_block, wp.pair_chunk, bp, tiles, slabs,
@@ -528,7 +535,8 @@ def test_odd_run_two_pair_operand_is_refused(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cw.windowed_matmul_single(
             wp.pair_block, wp.pair_chunk, wp.block_ptr,
-            wp.tiles_split[..., :128].double(), slabs[..., :128].double(),
+            torch.zeros((wp.n_pairs, 64, 128), dtype=torch.float64,
+                        device=cuda), slabs[..., :128].double(),
             nb=wp.n_blocks)
 
 
@@ -544,7 +552,10 @@ def test_two_pair_spmm_on_card_matches_oracle(cuda, dtype, k):
                                 pairs_per_step=2, beat_gather_margin=np.inf)
     assert wp is not None and wp.spill is not None
     wp = wp.to(cuda)
+    # The card copy holds the natural compact plane its kernel reads.
     assert (wp.tiles is None) == (dtype == np.float32)
+    assert isinstance(wp.tiles_split if dtype == np.float32 else wp.tiles,
+                      CompactTiles)
     v = generate_fat_vector(2000, k, seed=k).astype(np.float32)
     vt = torch.from_numpy(v).to(cuda)
     if dtype == "bfloat16":
@@ -559,6 +570,164 @@ def test_two_pair_spmm_on_card_matches_oracle(cuda, dtype, k):
     ref = spmm_host_f64(csr, vt.cpu().float().numpy())
     err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < (5e-3 if dtype == np.float32 else 5e-2)
+
+
+def _natural_hazards(C, R, split, seed):
+    """``_hazard_operand``'s tiles in the natural layout (P, R, planes *
+    C), with tile 4's entries cut to output indices below R / 2, so at
+    R = 256 the second CTA's slice of it is empty: blocks with empty runs,
+    a tile with no entries (a padding pair), a fully dense tile (more
+    than kCap entries in each CTA's rows), a full row, a -0.0 entry."""
+    pb, pc, bp, tiles_t, nb, n_chunks = _hazard_operand(C, R, split, seed)
+    tiles_t[4, :, R // 2:] = 0
+    return pb, pc, bp, tiles_t.transpose(1, 2).contiguous(), nb, n_chunks
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split3", "bf16"])
+@pytest.mark.parametrize("k8", [8, 32, 64])
+@pytest.mark.parametrize("C,R", [(128, 8), (128, 128), (256, 256),
+                                 (512, 256), (512, 512)])
+def test_natural_compact_hazards(cuda, C, R, k8, split):
+    pb, pc, bp, tiles, nb, n_chunks = _natural_hazards(C, R, split,
+                                                       seed=C + R + k8)
+    ct = CompactTiles.from_natural(tiles, split)
+    assert ct.natural and ct.shape == tuple(tiles.shape)
+    assert ct.wide == (int(C * R > 65535) | int(C > 256) << 1)
+    ct = ct.to(cuda)
+    pb, pc, bp = (torch.from_numpy(a).to(cuda) for a in (pb, pc, bp))
+    dense = tiles.to(cuda)
+    assert torch.equal(ct.to_dense().view(torch.int16),
+                       dense.view(torch.int16))
+    v = torch.from_numpy(np.random.default_rng(k8).uniform(
+        -50, 50, (n_chunks * C, k8)).astype(np.float32)).to(cuda)
+    if split:
+        kernel, plain = cw.windowed_matmul_split3, \
+            cw.windowed_matmul_split3_plain
+        slabs = cw.chunk_slabs(v, C=C, split=True)
+    else:
+        kernel, plain = cw.windowed_matmul_single, \
+            cw.windowed_matmul_single_plain
+        slabs = cw.chunk_slabs(v.to(torch.bfloat16), C=C, split=False)
+    cw.reset_launch_counts()
+    got = kernel(pb, pc, bp, ct, slabs, nb=nb)
+    assert cw.launch_counts() == _counts(**{"B3" if split else "B4": 1})
+    want = plain(pb, pc, dense, slabs, nb=nb)
+    cond = plain(pb, pc, dense.abs(), slabs.abs(), nb=nb)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, R, k8)
+    _assert_b1_close(got, want, cond)
+    assert torch.count_nonzero(got[1]) == torch.count_nonzero(got[4]) == 0
+
+
+def test_two_pair_card_copies_hold_the_natural_plane(cuda):
+    """``to`` keeps the natural compact plane in place of the dense one
+    for U=2 f32 (``tiles_split``) and bf16 (``tiles``), and a dense plane
+    on the card reaches no kernel."""
+    csr = fem3d_csr(1024, 16000, seed=8).astype(np.float32)
+    host = _u2(csr, 256, 256)
+    hosts = {"f32": host, "bf16": host.astype(torch.bfloat16)}
+    copies = {label: h.to(cuda) for label, h in hosts.items()}
+    for label, h in hosts.items():
+        wp = copies[label]
+        field = "tiles_split" if label == "f32" else "tiles"
+        ct = getattr(wp, field)
+        assert isinstance(ct, CompactTiles) and ct.natural
+        assert ct.device == cuda and ct.shape == getattr(h, field).shape
+        assert wp.tiles_split is None if label == "bf16" else wp.tiles is None
+        assert wp.dtype == (torch.float32 if label == "f32"
+                            else torch.bfloat16)
+        np.testing.assert_array_equal(
+            ct.to_dense().cpu().view(torch.int16).numpy().view(np.uint16),
+            getattr(h, field))
+    wp = copies["f32"]
+    dense = torch.from_numpy(host.tiles_split.view(np.int16)).to(cuda).view(
+        torch.bfloat16)
+    slabs = torch.zeros((wp.n_chunks, 8, 512), dtype=torch.bfloat16,
+                        device=cuda)
+    args = (wp.pair_block, wp.pair_chunk, wp.block_ptr)
+    cw.reset_launch_counts()
+    with pytest.raises(ValueError, match="dense natural plane"):
+        cw.windowed_matmul_split3(*args, dense, slabs, nb=wp.n_blocks)
+    with pytest.raises(ValueError, match="dense natural plane"):
+        cw.windowed_matmul_single(*args, dense[..., :256].contiguous(),
+                                  slabs[..., :256].contiguous(),
+                                  nb=wp.n_blocks)
+    # B1's orientation of the plane is refused too (R = C: same shape).
+    with pytest.raises(ValueError, match="natural=False"):
+        cw.windowed_matmul_single(
+            *args, dataclasses.replace(copies["bf16"].tiles, natural=False),
+            slabs[..., :256].contiguous(), nb=wp.n_blocks)
+    assert cw.launch_counts() == _counts()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_two_pair_past_the_compact_width_keeps_dense_planes(cuda, dtype):
+    """C = 1024, past the widest chunk the compact kernel stages: the card
+    copy keeps its dense natural planes, the dense kernel reads them, and
+    a compact plane of that width is refused."""
+    csr = fem3d_csr(2048, 32000, seed=3).astype(np.float32)
+    if dtype == "bfloat16":
+        csr = csr.astype(torch.bfloat16)
+    host = _u2(csr, 256, 1024)
+    wp = host.to(cuda)
+    split = dtype == np.float32
+    tiles = wp.tiles_split if split else wp.tiles
+    assert isinstance(tiles, torch.Tensor)
+    v = generate_fat_vector(2048, 32, seed=4).astype(np.float32)
+    v_p = wp.encode(torch.from_numpy(v).to(cuda)).contiguous()
+    if split:
+        kernel, plain = cw.windowed_matmul_split3, \
+            cw.windowed_matmul_split3_plain
+        slabs = cw.chunk_slabs(v_p, C=1024, split=True)
+    else:
+        kernel, plain = cw.windowed_matmul_single, \
+            cw.windowed_matmul_single_plain
+        slabs = cw.chunk_slabs(v_p.to(torch.bfloat16).contiguous(), C=1024,
+                               split=False)
+    args = (wp.pair_block, wp.pair_chunk, wp.block_ptr)
+    cw.reset_launch_counts()
+    got = kernel(*args, tiles, slabs, nb=wp.n_blocks)
+    assert cw.launch_counts() == _counts(**{"B3" if split else "B4": 1})
+    want = plain(wp.pair_block, wp.pair_chunk, tiles, slabs, nb=wp.n_blocks)
+    cond = plain(wp.pair_block, wp.pair_chunk, tiles.abs(), slabs.abs(),
+                 nb=wp.n_blocks)
+    torch.cuda.synchronize()
+    _assert_b1_close(got, want, cond)
+    with pytest.raises(ValueError, match="reads dense tiles"):
+        kernel(*args, CompactTiles.from_natural(tiles, split).to(cuda),
+               slabs, nb=wp.n_blocks)
+    out = spmm_any(wp, torch.from_numpy(v).to(cuda).to(
+        torch.float32 if split else torch.bfloat16))
+    assert _rel_to_oracle(out, csr, v) < (5e-3 if split else 5e-2)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_natural_nonfinite_v_reaches_only_its_entries(cuda, dtype):
+    """B3 and B4 bf16 on the compact plane diverge from the reference as
+    B1 does (ROADMAP C): an Inf or NaN in ``v`` makes non-finite exactly
+    the rows a CSR product does, where the dense-tile plain version (and
+    the TPU kernels) spread it over whole tiles."""
+    csr = banded_csr(512, 24, 8, seed=4).astype(np.float32)
+    if dtype == "bfloat16":
+        csr = csr.astype(torch.bfloat16)
+    wp = _u2(csr, 128, 128).to(cuda)
+    v = generate_fat_vector(512, 16, seed=9).astype(np.float32)
+    v[100, 3], v[300, 7], v[301, 7] = np.inf, np.nan, -np.inf
+    vt = torch.from_numpy(v)
+    if dtype == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+    cw.reset_launch_counts()
+    out = spmm_windowed(wp, vt.to(cuda)).cpu().float().numpy()
+    assert cw.launch_counts() == _counts(
+        B2=1, **{"B3" if dtype == np.float32 else "B4": 1})
+    ref = _csr_product(csr.astype(np.float32), vt.float().numpy())
+    bad = ~np.isfinite(ref)
+    assert bad.any() and bad.sum() < bad.size
+    np.testing.assert_array_equal(~np.isfinite(out), bad)
+    err = np.abs(out[~bad] - ref[~bad]).max() / np.abs(ref[~bad]).max()
+    assert err < (5e-3 if dtype == np.float32 else 5e-2)
+    plain = spmm_windowed(wp.to("cpu"), vt).float().numpy()
+    assert (~np.isfinite(plain)).sum() > bad.sum()
 
 
 # ---- B6: the phased kernel ------------------------------------------------

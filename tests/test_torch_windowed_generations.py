@@ -271,6 +271,12 @@ def test_split3_plain_vs_jax_interpret(k):
         nb=tw.n_blocks)
     assert got.shape == (tw.n_blocks, 16, k) and got.dtype == torch.float32
     _close(got.numpy(), np.asarray(want), cond.numpy())
+    # On the natural compact plane (what a card copy holds) the plain
+    # version densifies it: the same bits.
+    ct = TW.CompactTiles.from_natural(tw.tiles_split, True).to("cpu")
+    assert torch.equal(cw.windowed_matmul_split3(
+        tw.pair_block, tw.pair_chunk, tw.block_ptr, ct, slabs,
+        nb=tw.n_blocks), got)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -290,6 +296,11 @@ def test_single_plane_plain_vs_jax_interpret(dtype):
         nb=tw.n_blocks)
     assert got.dtype == torch.float32
     _close(got.numpy(), np.asarray(want), cond.numpy())
+    if dtype == "bfloat16":  # the natural compact plane B4 bf16 reads
+        ct = TW.CompactTiles.from_natural(tw.tiles, False).to("cpu")
+        assert torch.equal(cw.windowed_matmul_single(
+            tw.pair_block, tw.pair_chunk, tw.block_ptr, ct, slabs,
+            nb=tw.n_blocks), got)
 
 
 def test_two_pair_contract_checks():
@@ -748,9 +759,10 @@ def test_moving_an_odd_run_two_pair_operand_to_the_card_raises():
 
 @pytest.mark.parametrize("name", ["U2-f32-spill", "phased"])
 def test_plain_path_rebuilds_tiles_from_the_kept_planes(name):
-    """What ``to`` leaves on a card (U=2 f32: ``tiles_split`` only; a
-    phase layout: the phase-major ``tiles_t`` only) still runs the plain
-    path, for the narrow-k route."""
+    """What ``to`` leaves on a card (U=2 f32: ``tiles_split`` only, as
+    its natural compact plane; a phase layout: the phase-major
+    ``tiles_t`` only) still runs the plain path, for the narrow-k
+    route."""
     make, kw, _, _ = SLICE[name]
     tc = make(TG).astype(np.float32)
     full = TW.WindowedPairs.from_csr(tc, **kw).to("cpu")
@@ -761,6 +773,12 @@ def test_plain_path_rebuilds_tiles_from_the_kept_planes(name):
     v = torch.from_numpy(TG.generate_fat_vector(tc.shape[1], 5, seed=12)
                          .astype(np.float32))
     got = TOW.spmm_windowed(bare, v).numpy()
+    if name.startswith("U2"):
+        compact = dataclasses.replace(
+            bare, tiles_split=TW.CompactTiles.from_natural(
+                full.tiles_split, True).to("cpu"))
+        assert compact.split and compact.dtype == torch.float32
+        assert np.array_equal(TOW.spmm_windowed(compact, v).numpy(), got)
     want = TOW.spmm_windowed(full, v).numpy()
     cond = spmm_host_f64(dataclasses.replace(tc, values=np.abs(tc.values)),
                          np.abs(v.numpy()))
