@@ -39,11 +39,12 @@ next-state epilogue; dec). Phases:
 6. two-pair path: ``Auto(pairs_per_step=2)`` on the cop20k stand-in
    (route R = C = 256, U = 2, 2,270 pairs, 474 blocks, a spill), its
    card copy checked to hold the natural compact plane of
-   ``tiles_split`` and no dense natural plane (the plane's entries,
-   bytes and host build time printed). B3 (split3, on that plane) and B4
+   ``tiles_split``, equal bit for bit to the host's dense plane, and no
+   dense natural plane (the plane's entries and bytes and the
+   ``to(cuda)`` that builds it timed). B3 (split3, on that plane) and B4
    (f32, one dense plane; on the build's tiles and on full-mantissa
-   ones) against their plain versions at k = 32 (on the dense planes
-   rebuilt from the compact one), B7 (one launch over every spill
+   ones) against their plain versions at k = 32 (on the host's dense
+   planes), B7 (one launch over every spill
    bucket, and each bucket alone) against the take route, all within
    ``1e-5 * cond + 1e-6``; then, with the counts zeroed, a one-shot
    ``spmm_any`` with the spill through the take route, one with the
@@ -53,7 +54,12 @@ next-state epilogue; dec). Phases:
    memory. The same in bf16 (route R = C = 512, 1,098 pairs, a spill;
    the card copy holds the natural compact plane of ``tiles``): B4
    (bf16, on that plane) against its plain version, one-shot and
-   amortized ``run_benchmark(dtype=bfloat16)`` in the bf16 tier;
+   amortized ``run_benchmark(dtype=bfloat16)`` in the bf16 tier. Last,
+   the dense natural kernel that B3 and B4 bf16 run for chunks wider
+   than the compact kernel stages: the U=2 build with ``chunk_cols``
+   pinned to 1024, f32 and bf16, whose card copies keep their dense
+   planes; B3 and B4 bf16 on them against their plain versions within
+   ``1e-5 * cond + 1e-6``;
 7. phased chain: ``Auto(phase_layout=True)`` (three phases, 448 chunks
    per phase). B6 resident and streamed (B1 per phase) against the plain
    version and each other; with the counts zeroed, a one-shot
@@ -759,15 +765,19 @@ def entry(name, label, src, replaces, launches, numbers, **extra):
             **{key: numbers[key] for key in ENTRY_KEYS}, **extra}
 
 
-def two_pair_operand(csr, dev, field, label):
+def two_pair_operand(csr, dev, label):
     """``Auto(pairs_per_step=2).prepare(csr, dev)`` in its two steps, the
-    host build and ``to(cuda)``, with the card copy's plane checked: the
-    natural ``CompactTiles`` of the host's dense ``field`` (``tiles_split``
-    for f32, ``tiles`` for bf16), and no dense natural plane. The plane's
-    host build is also timed alone. Returns the card copy and the plane's
-    numbers."""
+    host build and ``to(cuda)`` (which builds the compact plane on the
+    host, timed with it), with the card copy's plane checked: a natural
+    ``CompactTiles`` whose ``to_dense`` equals the host's own dense
+    natural plane bit for bit, and no dense natural plane. Returns the
+    card copy, the host's dense plane on the card (the plain versions'
+    tiles) and the plane's numbers."""
     import torch
 
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        to_tensor,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
         CompactTiles,
     )
@@ -779,24 +789,84 @@ def two_pair_operand(csr, dev, field, label):
     wp = host.to(dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    dense = getattr(host, field)
-    plane = CompactTiles.from_natural(dense, field == "tiles_split")
-    build_s = time.perf_counter() - t2
-    ct = getattr(wp, field)
+    field = "tiles_split" if host.split else "tiles"
+    dense = to_tensor(host.natural_plane, dev)
+    ct = wp.natural_plane
     check(isinstance(ct, CompactTiles) and ct.natural
-          and ct.shape == dense.shape and ct.nnz == plane.nnz
           and not any(isinstance(getattr(wp, f), torch.Tensor)
                       for f in ("tiles", "tiles_split")),
           f"the two-pair {label} card copy does not hold the compact plane "
           f"in place of its dense {field}")
-    numbers = {"entries": plane.nnz, "bytes": ct.nbytes,
-               "dense_bytes": dense.nbytes, "host_build_s": build_s}
-    print(f"two-pair {label}: auto_format {t1 - t0:.2f} s, to(cuda) "
-          f"{t2 - t1:.2f} s; route {windowed_route(wp)}; compact natural "
-          f"plane {plane.nnz} entries, {ct.nbytes} B on the card in place of "
-          f"the dense {field} {dense.nbytes} B {tuple(dense.shape)}; built on "
-          f"the host in {build_s} s")
-    return wp, numbers
+    check(torch.equal(ct.to_dense().view(torch.int16),
+                      dense.view(torch.int16)),
+          f"the two-pair {label} card copy's compact plane is not the "
+          f"host's {field} bit for bit")
+    numbers = {"entries": ct.nnz, "bytes": ct.nbytes,
+               "dense_bytes": nbytes(dense), "to_cuda_s": t2 - t1}
+    print(f"two-pair {label}: auto_format {t1 - t0:.2f} s; route "
+          f"{windowed_route(wp)}; to(cuda) {t2 - t1} s, the compact natural "
+          f"plane built in it: {ct.nnz} entries, {ct.nbytes} B on the card "
+          f"in place of the dense {field} {nbytes(dense)} B "
+          f"{tuple(dense.shape)}, equal to it bit for bit")
+    return wp, dense, numbers
+
+
+def wide_chunk_phase(dev, csr) -> None:
+    """The dense natural kernel, which B3 and B4 bf16 run only for chunks
+    wider than ``COMPACT_MAX_C`` (no default route builds one): the
+    cop20k stand-in's U=2 build with ``chunk_cols`` pinned to 1024, f32
+    and bf16. Its card copy must keep the dense natural plane; B3 (mode
+    0) and B4 bf16 (mode 1) on it against their plain versions within
+    ``1e-5 * cond + 1e-6``, both timed."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        COMPACT_MAX_C, WindowedPairs,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+
+    C = 1024
+    v = torch.from_numpy(generate_fat_vector(
+        csr.shape[1], K, seed=0).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    host = WindowedPairs.from_csr(csr, chunk_cols=C, pairs_per_step=2,
+                                  beat_gather_margin=1e9)
+    print(f"two-pair build at C = {C}: {time.perf_counter() - t0:.2f} s")
+    for label, h in (("f32", host), ("bf16", host.astype(torch.bfloat16))):
+        wp = h.to(dev)
+        tiles = wp.natural_plane
+        route = windowed_route(wp)
+        print(f"two-pair {label} at C = {C}: route {route}; natural plane "
+              f"{type(tiles).__name__} {tuple(tiles.shape)} "
+              f"{nbytes(tiles) if isinstance(tiles, torch.Tensor) else 0} B")
+        check(C > COMPACT_MAX_C and route["C"] == C and route["U"] == 2
+              and isinstance(tiles, torch.Tensor),
+              f"the C = {C} two-pair {label} card copy does not keep its "
+              f"dense natural plane")
+        pb, pc, bp, nb = (wp.pair_block, wp.pair_chunk, wp.block_ptr,
+                          wp.n_blocks)
+        v_p = wp.encode(v.to(torch.float32 if label == "f32"
+                             else tiles.dtype)).contiguous()
+        slabs = cw.chunk_slabs(v_p, C=C, split=label == "f32")
+        if label == "f32":
+            kernel, plain = cw.windowed_matmul_split3, \
+                cw.windowed_matmul_split3_plain
+        else:
+            kernel, plain = cw.windowed_matmul_single, \
+                cw.windowed_matmul_single_plain
+        got = kernel_vs_plain(
+            f"{'B3' if label == 'f32' else 'B4 bf16'} dense natural kernel "
+            f"C = {C}", lambda: kernel(pb, pc, bp, tiles, slabs, nb=nb),
+            lambda t, s: plain(pb, pc, t, s, nb=nb), tiles, slabs, n=20)
+        print(f"dense natural kernel ({label}, C = {C}) {got['ms']} ms, "
+              f"plain {got['plain_ms']} ms")
+        del wp, tiles, slabs, v_p
+    del host
 
 
 def two_pair_phase(dev, csr, power):
@@ -818,7 +888,7 @@ def two_pair_phase(dev, csr, power):
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
 
     # 6.1 route and the compact natural plane
-    wp, plane_f32 = two_pair_operand(csr, dev, "tiles_split", "f32")
+    wp, dense, plane_f32 = two_pair_operand(csr, dev, "f32")
     route = windowed_route(wp)
     check(route == U2_F32_ROUTE, f"unexpected two-pair route {route}")
     print(f"spill buckets {[tuple(b.cols.shape) for b in wp.spill.buckets]}")
@@ -829,9 +899,8 @@ def two_pair_phase(dev, csr, power):
     pb, pc, bp = wp.pair_block, wp.pair_chunk, wp.block_ptr
 
     # 6.2 B3, B4 (f32) and B7 against their plain versions; B3 on the
-    # compact plane, the plain version on the dense plane rebuilt from it
+    # compact plane, the plain version on the host's dense plane
     ct = wp.tiles_split
-    dense = ct.to_dense()
     P, R = wp.n_pairs, wp.block_rows
     flops = 2 * P * R * C * K  # one product of every tile
     out_bytes = nb * R * K * 4
@@ -923,7 +992,7 @@ def two_pair_phase(dev, csr, power):
 
     # 6.4 bf16: route, B4 against its plain version, main path counted
     csr_bf = csr.astype(torch.bfloat16)
-    wpb, plane_bf16 = two_pair_operand(csr_bf, dev, "tiles", "bf16")
+    wpb, dense_b, plane_bf16 = two_pair_operand(csr_bf, dev, "bf16")
     route_bf = windowed_route(wpb)
     check({k: route_bf[k] for k in U2_BF16_ROUTE} == U2_BF16_ROUTE,
           f"unexpected bf16 two-pair route {route_bf}")
@@ -933,7 +1002,6 @@ def two_pair_phase(dev, csr, power):
     pb, pc, bp, nb = (wpb.pair_block, wpb.pair_chunk, wpb.block_ptr,
                       wpb.n_blocks)
     ctb = wpb.tiles
-    dense_b = ctb.to_dense()
     b4 = kernel_vs_plain(
         "B4 windowed_matmul_single bf16",
         lambda: cw.windowed_matmul_single(pb, pc, bp, ctb, slabs_b, nb=nb),
@@ -997,6 +1065,8 @@ def two_pair_phase(dev, csr, power):
             "max_error": rec_bf.max_error, "launches": counts_bf},
         "b7_all_buckets_ms": b7["ms"], "take_route_ms": b7["take_route_ms"],
         "plane_f32": plane_f32, "plane_bf16": plane_bf16, "power": power}))
+    # 6.5 the dense natural kernel, for chunks past the compact width
+    wide_chunk_phase(dev, csr)
     # B4 f32 runs on no routed path (an f32 build carries split planes, so
     # B3 runs): its numbers ride on the B4 entry.
     f32_extra = {f"f32_{key}": b4_f32[key] for key in ENTRY_KEYS}

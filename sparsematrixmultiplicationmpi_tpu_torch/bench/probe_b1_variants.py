@@ -305,7 +305,7 @@ def probe_natural(libs: dict, dev) -> dict:
     for label, dtype in (("B3", torch.float32), ("B4 bf16", torch.bfloat16)):
         wp = auto_format(csr.astype(dtype), pairs_per_step=2).to(dev)
         split = label == "B3"
-        ct = wp.tiles_split if split else wp.tiles
+        ct = wp.natural_plane
         v_p = wp.encode(v.to(dtype)).contiguous()
         slabs = cw.chunk_slabs(v_p, C=wp.chunk_cols, split=split)
         plain = (cw.windowed_matmul_split3_plain if split

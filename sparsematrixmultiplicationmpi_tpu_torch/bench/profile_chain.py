@@ -2,11 +2,13 @@
 
     python -m sparsematrixmultiplicationmpi_tpu_torch.bench.profile_chain \
         [--pairs-per-step 2] [--phase-layout] [--dtype bfloat16] \
-        [--spill-dma-gather]
+        [--spill-dma-gather] [--k K]
 
 Builds the cop20k_A stand-in on the first CUDA device through ``Auto``
 (the options go to its format search, or, for ``--spill-dma-gather``,
-route the spill through kernel B7), encodes a k = 32 fat vector once,
+route the spill through kernel B7), encodes a k = 32 fat vector once
+(``--k`` another width: a narrow one not a multiple of 8, such as 1,
+takes the plain path, as on the TPU),
 then runs 50 back-to-back chain bodies three times: on the host clock
 alone (milliseconds per body, gaps between launches included), on the
 host clock without waiting for the device (the host's own issue time
@@ -36,7 +38,7 @@ from ..ops import ell
 from ..parallel.strategies import Auto
 
 
-N, K = 50, 32
+N = 50
 
 
 def main(argv=None) -> int:
@@ -46,6 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
     ap.add_argument("--spill-dma-gather", action="store_true")
+    ap.add_argument("--k", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: no CUDA device", file=sys.stderr)
@@ -60,8 +63,8 @@ def main(argv=None) -> int:
     strategy = Auto(**format_kwargs)
     op = strategy.prepare(csr, dev)
     enc, body, _ = strategy.chain_parts(op)
-    v = to_tensor(generate_fat_vector(csr.shape[1], K).astype(np.float32),
-                  dev).to(dtype)
+    v = to_tensor(generate_fat_vector(csr.shape[1], args.k).astype(
+        np.float32), dev).to(dtype)
     state = enc(v, op)
 
     def run():
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
         "device": smi.stdout.strip() or torch.cuda.get_device_name(dev),
         "format": {**format_kwargs, "dtype": args.dtype,
                    "spill_dma_gather": args.spill_dma_gather},
-        "n": N, "k": K,
+        "n": N, "k": args.k,
         "host_ms_per_body": host_ms, "host_enqueue_ms_per_body": enqueue_ms,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": busy_ms / wall_ms, "kernels": kernels}))

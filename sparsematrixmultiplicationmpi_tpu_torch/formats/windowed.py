@@ -23,7 +23,7 @@ reference does; an H100 cost table is later work. bf16 host arrays are
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -764,14 +764,14 @@ class WindowedPairs:
 
     #: (P, R, C); None in some card copies, its natural ``CompactTiles``
     #: in a card copy of a bf16 U=2 operand (``to``).
-    tiles: Optional[np.ndarray]
+    tiles: Optional[Union[np.ndarray, CompactTiles]]
     pair_chunk: np.ndarray          # (P,) int32
     pair_block: np.ndarray          # (P,) int32, ascending
     block_ptr: np.ndarray           # (nb + 1,) int32 pair run bounds
     #: Lane-packed bf16 hi|lo split of f32 tiles, (P, R, 2C); None for
     #: other dtypes. A card copy of a U=2 operand holds its natural
     #: ``CompactTiles`` instead (``to``).
-    tiles_split: Optional[np.ndarray]
+    tiles_split: Optional[Union[np.ndarray, CompactTiles]]
     spill: Optional[BucketedELL]
     perm: Optional[np.ndarray]      # (m,) int32 or None
     inv_perm: Optional[np.ndarray]  # (m,) int32 or None
@@ -788,7 +788,7 @@ class WindowedPairs:
     #: PHASE-major order when ``phases`` is set (``build_phase_layout``):
     #: consumed by B6 with the ``_ph`` id arrays, never with
     #: ``pair_block``/``pair_chunk``.
-    tiles_t: Optional[np.ndarray] = None
+    tiles_t: Optional[Union[np.ndarray, CompactTiles]] = None
     #: Phase-major layout (``phase_layout=True``, R % 128 == 0 U>2
     #: builds): phase-LOCAL block and chunk ids in ``tiles_t``'s order,
     #: the static per-phase ``(pair_offset, n_pairs, chunk_lo, block_lo,
@@ -815,6 +815,13 @@ class WindowedPairs:
         if self.split:
             return torch.float32
         return _plane_dtype(self.tiles_t)
+
+    @property
+    def natural_plane(self):
+        """The natural plane the two-pair kernels (B3, B4) read:
+        ``tiles_split`` of split f32 operands, else ``tiles``; dense, or
+        its natural ``CompactTiles`` in a card copy (``to``)."""
+        return self.tiles_split if self.split else self.tiles
 
     @property
     def n_pairs(self) -> int:

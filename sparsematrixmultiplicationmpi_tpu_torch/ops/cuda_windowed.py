@@ -27,13 +27,14 @@ tensor on the CPU and launches its kernel for a CUDA tensor — there is no
 fallback from one to the other — and counts its kernel launches in
 ``<wrapper>.launches``. The plain versions mirror the JAX package on
 dense tiles (a ``CompactTiles`` operand on the CPU is densified first).
-On the card B1 and B6 take only the compact plane of ``tiles_t``, B3 and
-B4 bf16 only the natural compact plane of their tiles while ``C <=
-COMPACT_MAX_C`` (512, the widest chunk the compact kernels stage), and a
-dense plane there raises; a wider chunk's dense natural planes go to the
-dense natural kernel (which refuses a compact one). B4 f32 reads dense
-f32 tiles. ``spmm_windowed_cuda`` is the JAX package's
-``spmm_windowed_pallas``: one-shot SpMM through B2 then B1, B6, B3 or B4.
+On the card B1 and B6 take only the compact plane of ``tiles_t``; B3 and
+B4 bf16 dispatch on their plane's type: a natural ``CompactTiles`` goes
+to the compact kernel (``C <= COMPACT_MAX_C``, 512, the widest chunk it
+stages), a dense plane to the dense natural kernel, which takes only a
+wider chunk (``WindowedPairs.to`` keeps such chunks dense); a dense plane
+of a narrower chunk raises. B4 f32 reads dense f32 tiles.
+``spmm_windowed_cuda`` is the JAX package's ``spmm_windowed_pallas``:
+one-shot SpMM through B2 then B1, B6, B3 or B4.
 """
 
 from __future__ import annotations
@@ -447,9 +448,11 @@ def _natural_launch(wrapper, pair_chunk, block_ptr, tiles, slabs, *, nb, R,
     bf16 past ``COMPACT_MAX_C``, B4 f32), counted in its ``launches``."""
     name = wrapper.__name__
     dev = slabs.device
-    _require(isinstance(tiles, torch.Tensor),
-             f"{name}: the dense natural kernel reads dense tiles; a compact "
-             f"plane is read only while C <= {COMPACT_MAX_C}, got C={C}")
+    _require(mode == 2 or C > COMPACT_MAX_C,
+             f"no kernel for a dense natural plane with C={C} on {dev}: "
+             f"{name} reads the compact plane (CompactTiles.from_natural, "
+             f"which WindowedPairs.to builds once per operand) while C <= "
+             f"{COMPACT_MAX_C}")
     for arg, x, dt in (("tiles", tiles, dtype), ("slabs", slabs, dtype),
                        ("pair_chunk", pair_chunk, torch.int32),
                        ("block_ptr", block_ptr, torch.int32)):
@@ -494,8 +497,8 @@ def windowed_matmul_split3(pair_block, pair_chunk, block_ptr, tiles_split,
 
     ``tiles_split``: (P, R, 2C) bf16 ``[hi | lo]``, block-sorted with
     even per-block runs (``P`` even, checked): on the card its natural
-    ``CompactTiles`` while ``C <= COMPACT_MAX_C`` (a dense plane there
-    raises), dense past it (the dense kernel); dense or compact on the
+    ``CompactTiles`` (the compact kernel, ``C <= COMPACT_MAX_C``) or,
+    for a wider chunk, dense (the dense kernel); dense or compact on the
     CPU (densified). ``block_ptr`` (nb + 1) bounds each block's run (the
     kernel's work list); ``slabs``: (n_chunks, k8, 2C) bf16 from
     ``chunk_slabs(split=True)``."""
@@ -504,7 +507,7 @@ def windowed_matmul_split3(pair_block, pair_chunk, block_ptr, tiles_split,
     if not _on_kernel_device(slabs):
         return windowed_matmul_split3_plain(
             pair_block, pair_chunk, dense_plane(tiles_split), slabs, nb=nb)
-    if C <= COMPACT_MAX_C:
+    if isinstance(tiles_split, CompactTiles):
         return _natural_compact(windowed_matmul_split3, pair_chunk,
                                 block_ptr, tiles_split, slabs, nb=nb, R=R,
                                 C=C, k8=k8, split=True)
@@ -536,21 +539,21 @@ def windowed_matmul_single(pair_block, pair_chunk, block_ptr, tiles, slabs,
     cast to the tiles' dtype first, as the reference does (the kernel
     takes them already cast). ``tiles``: (P, R, C), even per-block runs
     (``P`` even, checked); on the card bf16 tiles are their natural
-    ``CompactTiles`` while ``C <= COMPACT_MAX_C`` (a dense bf16 plane
-    there raises) and dense past it, f32 tiles dense; ``slabs``:
-    (n_chunks, k8, C)."""
+    ``CompactTiles`` (the compact kernel, ``C <= COMPACT_MAX_C``) or,
+    for a wider chunk, dense (the dense kernel), f32 tiles dense;
+    ``slabs``: (n_chunks, k8, C)."""
     R, C, k8 = _natural_checks("windowed_matmul_single", pair_block, tiles,
                                slabs, planes=1)
     if not _on_kernel_device(slabs):
         return windowed_matmul_single_plain(
             pair_block, pair_chunk, dense_plane(tiles), slabs, nb=nb)
-    _require(tiles.dtype in (torch.float32, torch.bfloat16),
-             f"windowed_matmul_single kernel takes float32 or bfloat16 "
-             f"tiles, got {tiles.dtype}")
-    if tiles.dtype == torch.bfloat16 and C <= COMPACT_MAX_C:
+    if isinstance(tiles, CompactTiles):
         return _natural_compact(windowed_matmul_single, pair_chunk,
                                 block_ptr, tiles, slabs, nb=nb, R=R, C=C,
                                 k8=k8, split=False)
+    _require(tiles.dtype in (torch.float32, torch.bfloat16),
+             f"windowed_matmul_single kernel takes float32 or bfloat16 "
+             f"tiles, got {tiles.dtype}")
     return _natural_launch(windowed_matmul_single, pair_chunk, block_ptr,
                            tiles, slabs, nb=nb, R=R, C=C, k8=k8,
                            mode=2 if tiles.dtype == torch.float32 else 1,
@@ -591,17 +594,18 @@ def spmm_windowed_cuda(wp: WindowedPairs,
     k = v_p.shape[1]
     split = wp.split
     if wp.pairs_per_step <= 2:
+        tiles = wp.natural_plane
         if split:
             slabs = chunk_slabs(v_p.to(torch.float32).contiguous(), C=C,
                                 split=True)
             computed = windowed_matmul_split3(
-                wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles_split,
-                slabs, nb=nb)
+                wp.pair_block, wp.pair_chunk, wp.block_ptr, tiles, slabs,
+                nb=nb)
         else:
-            slabs = chunk_slabs(v_p.to(wp.tiles.dtype).contiguous(), C=C,
+            slabs = chunk_slabs(v_p.to(tiles.dtype).contiguous(), C=C,
                                 split=False)
             computed = windowed_matmul_single(
-                wp.pair_block, wp.pair_chunk, wp.block_ptr, wp.tiles, slabs,
+                wp.pair_block, wp.pair_chunk, wp.block_ptr, tiles, slabs,
                 nb=nb)
         return _finish(wp, computed.reshape(nb * R, k), v_p)
     slab_dtype = torch.float32 if split else wp.tiles_t.dtype

@@ -340,7 +340,8 @@ def test_natural_plane_round_trip_is_bitwise(name, dtype):
     host and as CPU tensors."""
     tw = _u2_port(name, dtype)
     split = dtype == np.float32
-    plane = tw.tiles_split if split else tw.tiles
+    plane = tw.natural_plane
+    assert plane is (tw.tiles_split if split else tw.tiles)
     assert plane is not None and plane.dtype == np.uint16
     ct = CompactTiles.from_natural(plane, split)
     ref = CompactTiles.from_dense(np.ascontiguousarray(

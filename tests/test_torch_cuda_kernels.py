@@ -664,14 +664,14 @@ def test_two_pair_card_copies_hold_the_natural_plane(cuda):
 def test_two_pair_past_the_compact_width_keeps_dense_planes(cuda, dtype):
     """C = 1024, past the widest chunk the compact kernel stages: the card
     copy keeps its dense natural planes, the dense kernel reads them, and
-    a compact plane of that width is refused."""
+    the compact kernel refuses a compact plane of that width."""
     csr = fem3d_csr(2048, 32000, seed=3).astype(np.float32)
     if dtype == "bfloat16":
         csr = csr.astype(torch.bfloat16)
     host = _u2(csr, 256, 1024)
     wp = host.to(cuda)
     split = dtype == np.float32
-    tiles = wp.tiles_split if split else wp.tiles
+    tiles = wp.natural_plane
     assert isinstance(tiles, torch.Tensor)
     v = generate_fat_vector(2048, 32, seed=4).astype(np.float32)
     v_p = wp.encode(torch.from_numpy(v).to(cuda)).contiguous()
@@ -693,7 +693,7 @@ def test_two_pair_past_the_compact_width_keeps_dense_planes(cuda, dtype):
                  nb=wp.n_blocks)
     torch.cuda.synchronize()
     _assert_b1_close(got, want, cond)
-    with pytest.raises(ValueError, match="reads dense tiles"):
+    with pytest.raises(ValueError, match="C <= 512"):
         kernel(*args, CompactTiles.from_natural(tiles, split).to(cuda),
                slabs, nb=wp.n_blocks)
     out = spmm_any(wp, torch.from_numpy(v).to(cuda).to(
