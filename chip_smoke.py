@@ -64,7 +64,29 @@ next-state epilogue; dec). Phases:
    per phase). B6 resident and streamed (B1 per phase) against the plain
    version and each other; with the counts zeroed, a one-shot
    ``spmm_any`` and the amortized ``run_benchmark`` (body = B6 +
-   ``resplit_slabs``), against the f64 oracle; one B6 launch per call.
+   ``resplit_slabs``), against the f64 oracle; one B6 launch per call;
+8. GCN training on the model benchmark's graph (``gcn_task()``: 100,000
+   nodes, 598,723 nnz, f = 64, h = 128, c = 16, f32; ``auto_format(
+   k_nominal=128)`` -> ``BucketedELL``, take-route gathers) through the
+   custom-gradient SpMM (``make_symmetric_spmm``): the first step's loss
+   and four gradients against the same port code in float64 on the CPU
+   (SpMM through a CPU COO operand; loss within 1e-4 relative, each
+   gradient within 1e-3 of its largest magnitude), 20 Adam steps with a
+   falling loss, ``step_ms`` (CUDA events over 20 steps after 3 warm-up,
+   best and worst of 3 rounds) beside ``step_ms_library`` (the same
+   training through ``torch.sparse.mm``) and the peak memory; then one
+   4-head ``multi_head_gat`` (64 -> 4 x 32) forward and backward, checked
+   against CPU float64 the same way and timed;
+9. GCN training on the cop20k mesh graph (``mesh_gcn_task()``: 121,192
+   nodes, 2,745,522 nnz; route ``WindowedPairs`` R = 256, C = 128,
+   U = 16, a spill): B1 at this R and k8 = 128 and 16 against its plain
+   version (``1e-5 * cond + 1e-6``), then the checks and times of
+   phase 8, with exactly 4 B1 and 4 B2 launches a training step (the
+   forward and backward SpMMs at k = 128 and 16) and no other kernel;
+10. the hub route: ``auto_format(dc1_like(), allow_hub=True)`` at k = 32,
+   f32, must give ``HubExtracted``; a one-shot ``spmm_any`` on the card
+   against the f64 oracle in the f32 tier, timed beside
+   ``torch.sparse.mm`` on the whole matrix.
 
 Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
@@ -77,8 +99,9 @@ planes, one without); ``dense_bound_ms`` beside it is the bound of the
 dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
-path's result, one with the solver path's, one for each of phases 6 and
-7, one with the kernels, and as the last line
+path's result, one with the solver path's, one for each of phases 6 to
+10, one with the kernels (B1 and B2 also with their launches per mesh
+GCN step, B1 with its R = 256, k8 = 128 check), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails or no CUDA device is present. Imports no JAX.
 """
@@ -1202,6 +1225,404 @@ def phased_phase(dev, csr, power):
                  streamed_max_abs_err=streamed["max_abs_err"])
 
 
+GCN_F, GCN_H, GCN_C = 64, 128, 16
+GCN_STEPS, GCN_WARMUP, GCN_ROUNDS = 20, 3, 3
+#: The card's f32 step against the same port code in f64 on the CPU: the
+#: loss within 1e-4 relative, each gradient within 1e-3 of its largest
+#: magnitude (bf16 hi + lo slabs and f32 sums on the card).
+GCN_LOSS_RTOL, GCN_GRAD_TOL = 1e-4, 1e-3
+GAT_HEADS, GAT_WIDTH = 4, 32
+#: The GCN route the JAX package's format search picks on the cop20k
+#: mesh graph at k_nominal = 128.
+MESH_ROUTE = dict(R=256, C=128, U=16, spill=True)
+
+
+def reset_counts() -> None:
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_banded, cuda_gather, cuda_windowed,
+    )
+
+    for mod in (cuda_windowed, cuda_banded, cuda_gather):
+        mod.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_banded, cuda_gather, cuda_windowed,
+    )
+
+    return {**cuda_windowed.launch_counts(), **cuda_banded.launch_counts(),
+            **cuda_gather.launch_counts()}
+
+
+def step_times(fn, n=GCN_STEPS, warmup=GCN_WARMUP, rounds=GCN_ROUNDS):
+    """Milliseconds per ``fn()`` by CUDA events over ``n`` calls after
+    ``warmup``: (best, worst) of ``rounds`` rounds."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return min(times), max(times)
+
+
+def to_cpu_f64(tensors):
+    """Leaf copies of ``tensors`` in float64 on the CPU that require grad."""
+    import torch
+
+    return [t.detach().to("cpu", torch.float64).requires_grad_()
+            for t in tensors]
+
+
+def grads_agree(label, loss, ref_loss, grads, ref_grads) -> dict:
+    """The card's loss and gradients against the CPU float64 run:
+    ``GCN_LOSS_RTOL`` relative and ``GCN_GRAD_TOL`` of each gradient's
+    largest magnitude."""
+    import torch
+
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    grad_rel = [float((g.detach().cpu().double() - r).abs().max()
+                      / r.abs().max()) for g, r in zip(grads, ref_grads)]
+    print(f"{label}: loss {loss} (CPU f64 {ref_loss}, rel {loss_rel}); "
+          f"gradients' max error over their largest magnitude {grad_rel}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{label}: a gradient is not finite")
+    check(loss_rel <= GCN_LOSS_RTOL,
+          f"{label}: loss {loss} differs from CPU f64 {ref_loss}")
+    check(max(grad_rel) <= GCN_GRAD_TOL,
+          f"{label}: gradients differ from CPU f64 ({grad_rel})")
+    return {"loss_rel_err": loss_rel, "grad_rel_err": max(grad_rel)}
+
+
+def gcn_train_phase(label, dev, a_hat, operand, task,
+                    counted_kernels=()) -> dict:
+    """One GCN training run on the card through ``operand``: the first
+    step's loss and gradients against the same port code in float64 on
+    the CPU (SpMM through the CPU COO operand of ``a_hat``), 20 Adam
+    steps with the launches counted (``counted_kernels`` must each launch
+    4 times a step: forward and backward at the two widths), a falling
+    loss, and the step time against the same training through the
+    library call (``torch.sparse.mm``)."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.models import (
+        GCNParams, gcn_loss, init_gcn, make_train_step,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.autodiff import (
+        make_symmetric_spmm,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.library import (
+        to_torch_sparse,
+    )
+
+    x_host, labels_host, mask_host = task
+    x, labels, mask = (torch.from_numpy(a).to(dev)
+                       for a in (x_host, labels_host, mask_host))
+    spmm = make_symmetric_spmm(operand)
+
+    def fresh_params():
+        return init_gcn(GCN_F, GCN_H, GCN_C,
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device=dev)
+
+    # the first step against CPU float64
+    params = fresh_params()
+    reset_counts()
+    loss = gcn_loss(params, spmm, x, labels, mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    first_counts = all_counts()
+    ref_params = GCNParams(*to_cpu_f64(params))
+    ref_spmm = make_symmetric_spmm(a_hat.to_coo().astype(np.float64).to(
+        "cpu"))
+    t0 = time.perf_counter()
+    ref_loss = gcn_loss(ref_params, ref_spmm, torch.from_numpy(
+        x_host.astype(np.float64)), torch.from_numpy(labels_host),
+        torch.from_numpy(mask_host))
+    ref_loss.backward()
+    ref_s = time.perf_counter() - t0
+    out = grads_agree(f"{label} GCN first step", loss.item(),
+                      ref_loss.item(), [p.grad for p in params],
+                      [p.grad for p in ref_params])
+    print(f"{label}: CPU f64 reference step {ref_s:.2f} s; launches of the "
+          f"first forward + backward {first_counts}")
+
+    # 20 Adam steps, counted
+    step = make_train_step(spmm, torch.optim.Adam(params, lr=1e-2))
+    reset_counts()
+    losses = [float(step(params, x, labels, mask))
+              for _ in range(GCN_STEPS)]
+    torch.cuda.synchronize()
+    counts = all_counts()
+    with torch.no_grad():
+        final = float(gcn_loss(params, spmm, x, labels, mask))
+    print(f"{label}: losses over {GCN_STEPS} Adam steps {losses}, after "
+          f"them {final}; launches {counts}")
+    check(np.isfinite(losses).all() and np.isfinite(final)
+          and final < losses[0],
+          f"{label}: the loss did not fall ({losses[0]} -> {final})")
+    for name in counted_kernels:
+        check(counts[name] == 4 * GCN_STEPS and first_counts[name] == 4,
+              f"{label}: {name} launched {counts[name]} times in "
+              f"{GCN_STEPS} steps ({first_counts[name]} in one forward + "
+              "backward), not 4 a step")
+    for name, n in counts.items():
+        check(name in counted_kernels or n == 0,
+              f"{label}: {name} launched {n} times on this path")
+
+    # step times: the kernels' route, then the library call
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = step_times(lambda: step(params, x, labels, mask))
+    peak = torch.cuda.max_memory_allocated()
+    lib_params = fresh_params()
+    lib_spmm = make_symmetric_spmm(to_torch_sparse(a_hat.astype(
+        np.float32), device=dev))
+    lib_loss = gcn_loss(lib_params, lib_spmm, x, labels, mask).item()
+    check(abs(lib_loss - losses[0]) <= GCN_LOSS_RTOL * abs(losses[0]),
+          f"{label}: the library route's first loss {lib_loss} differs "
+          f"from the kernels' {losses[0]}")
+    lib_step = make_train_step(lib_spmm, torch.optim.Adam(lib_params,
+                                                          lr=1e-2))
+    step_ms_library = step_times(lambda: lib_step(lib_params, x, labels,
+                                                  mask))
+    print(f"{label}: step {step_ms} ms (best, worst of {GCN_ROUNDS} rounds "
+          f"of {GCN_STEPS}), library route {step_ms_library} ms; peak "
+          f"device memory {peak} B")
+    out.update(first_loss=losses[0], final_loss=final,
+               step_ms=step_ms[0], step_ms_range=list(step_ms),
+               step_ms_library=step_ms_library[0],
+               step_ms_library_range=list(step_ms_library),
+               max_memory_allocated=peak, launches_per_step={
+                   name: counts[name] / GCN_STEPS
+                   for name in counted_kernels})
+    return out
+
+
+def gat_phase(dev, a_hat, x_host) -> dict:
+    """One 4-head ``multi_head_gat`` (64 -> 4 x 32) forward and backward on
+    the card against the same code in float64 on the CPU (mean square of
+    the output as the loss, checked as the GCN's), and timed."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.models import (
+        GATParams, init_gat, multi_head_gat,
+    )
+
+    gen = torch.Generator().manual_seed(1)
+    heads = [init_gat(GCN_F, GAT_WIDTH, generator=gen, device=dev)
+             for _ in range(GAT_HEADS)]
+    coo = a_hat.to_coo().astype(np.float32)
+    adj, x = coo.to(dev), torch.from_numpy(x_host).to(dev)
+
+    def loss_of(hs, a, xx):
+        return multi_head_gat(hs, a, xx).square().mean()
+
+    loss = loss_of(heads, adj, x)
+    loss.backward()
+    ref_heads = [GATParams(*to_cpu_f64(h)) for h in heads]
+    ref_loss = loss_of(ref_heads, coo.astype(np.float64).to("cpu"),
+                       torch.from_numpy(x_host.astype(np.float64)))
+    ref_loss.backward()
+    out = grads_agree("GAT 4 heads", loss.item(), ref_loss.item(),
+                      [p.grad for h in heads for p in h],
+                      [p.grad for h in ref_heads for p in h])
+    out = {f"gat_{key}": val for key, val in out.items()}
+
+    def fwd_bwd():
+        loss_of(heads, adj, x).backward()
+
+    ms = step_times(fwd_bwd)
+    print(f"GAT {GAT_HEADS} heads {GCN_F} -> {GAT_HEADS}x{GAT_WIDTH} on "
+          f"{coo.nnz} edges: forward + backward {ms} ms")
+    out.update(gat_fwd_bwd_ms=ms[0], gat_fwd_bwd_ms_range=list(ms))
+    return out
+
+
+def gcn_100k_phase(dev, power, n=100_000) -> None:
+    """Phase 8: GCN training on the model benchmark's graph (100,000
+    nodes, ``k_nominal = 128`` -> ``BucketedELL``: take-route gathers, no
+    hand-written kernel), and one 4-head GAT on it."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+        gcn_task,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        BucketedELL,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
+
+    t0 = time.perf_counter()
+    a_hat, x, labels, mask = gcn_task(n=n)
+    t1 = time.perf_counter()
+    host = auto_format(a_hat, k_nominal=128)
+    t2 = time.perf_counter()
+    check(isinstance(host, BucketedELL),
+          f"the 100k GCN graph routes to {type(host).__name__}, not "
+          "BucketedELL")
+    buckets = [tuple(b.vals.shape) for b in host.buckets]
+    op = host.astype(torch.float32).to(dev)
+    print(f"GCN 100k: graph {a_hat.shape[0]} nodes, {a_hat.nnz} nnz built "
+          f"in {t1 - t0:.2f} s; auto_format {t2 - t1:.2f} s -> BucketedELL "
+          f"buckets {buckets}")
+    res = gcn_train_phase("GCN 100k", dev, a_hat, op, (x, labels, mask))
+    res.update(gat_phase(dev, a_hat, x))
+    print(json.dumps({"path": "gcn_train_100k_nodes", "nodes": a_hat.shape[0],
+                      "nnz": a_hat.nnz, "route": "BucketedELL",
+                      "buckets": buckets, **res, "power": power}))
+
+
+def b1_wide_check(wp, k) -> dict:
+    """B1 at the mesh operand's R = 256 and ``k8 = k`` against its plain
+    version within ``1e-5 * cond + 1e-6``, as phase 3 holds it at R =
+    128; timed, with its bound."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+
+    v = torch.from_numpy(generate_fat_vector(wp.shape[1], k, seed=k).astype(
+        np.float32)).to(wp.device)
+    slabs = cw.chunk_slabs(wp.encode(v).contiguous(), C=wp.chunk_cols,
+                           split=True)
+    ct = wp.tiles_t
+    args = (wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs)
+    kw = dict(nb=wp.n_blocks, pairs_per_step=wp.pairs_per_step, split=True)
+
+    def plain(t, s):
+        return cw.windowed_matmul_tmulti_plain(
+            wp.pair_block, wp.pair_chunk, t, s, nb=wp.n_blocks, split=True)
+
+    res = kernel_vs_plain(
+        f"B1 windowed_matmul_tmulti R={wp.block_rows} k8={k}",
+        lambda: cw.windowed_matmul_tmulti(*args, **kw), plain,
+        ct.to_dense(), slabs, n=100)
+    rest = (nbytes(slabs, wp.pair_chunk, wp.block_ptr)
+            + wp.n_blocks * k * wp.block_rows * 4)
+    res.update(bound(ct.nbytes + rest, 2 * 2 * ct.nnz * k, "f32"))
+    print(f"B1 R={wp.block_rows} k8={k}: {res['ms']} ms, plain "
+          f"{res['plain_ms']} ms, bound {res['bound_ms']} ms")
+    return res
+
+
+def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
+    """Phase 9: GCN training on the cop20k mesh graph (``k_nominal =
+    128`` -> ``WindowedPairs`` R = 256, C = 128, U = 16 with a spill):
+    every SpMM, forward and backward at k = 128 and k = 16, is B2 then
+    B1. B1 at this operand's R = 256 and k8 = 128, 16 against its plain
+    version. Returns B1's numbers at k8 = 128 and the launches per
+    training step."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+        mesh_gcn_task,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        CompactTiles, WindowedPairs,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
+
+    t0 = time.perf_counter()
+    a_hat, x, labels, mask = mesh_gcn_task(f=GCN_F, c=GCN_C, scale=scale)
+    t1 = time.perf_counter()
+    host = auto_format(a_hat, k_nominal=128)
+    t2 = time.perf_counter()
+    check(isinstance(host, WindowedPairs),
+          f"the mesh GCN graph routes to {type(host).__name__}")
+    wp = host.to(dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    route = windowed_route(wp)
+    print(f"GCN mesh: graph {a_hat.shape[0]} nodes, {a_hat.nnz} nnz built "
+          f"in {t1 - t0:.2f} s; auto_format {t2 - t1:.2f} s, to(cuda) "
+          f"{t3 - t2:.2f} s; route {route}; compact plane "
+          f"{wp.tiles_t.nnz} entries, {wp.tiles_t.nbytes} B")
+    check(all(route[key] == val for key, val in MESH_ROUTE.items())
+          and isinstance(wp.tiles_t, CompactTiles),
+          f"unexpected mesh GCN route {route}")
+    del host
+    b1 = {k: b1_wide_check(wp, k) for k in (128, 16)}
+    res = gcn_train_phase("GCN mesh", dev, a_hat, wp, (x, labels, mask),
+                          counted_kernels=("B1", "B2"))
+    print(json.dumps({"path": "gcn_train_cop20k_mesh",
+                      "nodes": a_hat.shape[0], "nnz": a_hat.nnz,
+                      "route": route, **res,
+                      "b1_r256": {k: {key: b1[k][key] for key in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms")}
+                          for k in b1}, "power": power}))
+    return b1[128], res["launches_per_step"]
+
+
+def hub_phase(dev, power, scale=1.0) -> None:
+    """Phase 10: the hub route. ``auto_format(dc1_like(), allow_hub=True)``
+    at k = 32, f32, must give ``HubExtracted``; a one-shot ``spmm_any``
+    on the card against the f64 oracle in the f32 tier, timed beside the
+    library call on the whole matrix."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.hub import (
+        HubExtracted,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        dc1_like, generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm_any,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.library import (
+        spmm_library, to_torch_sparse,
+    )
+
+    csr = dc1_like(dtype=np.float32, scale=scale)
+    t0 = time.perf_counter()
+    host = auto_format(csr, allow_hub=True)
+    t1 = time.perf_counter()
+    check(isinstance(host, HubExtracted),
+          f"dc1 with allow_hub routes to {type(host).__name__}")
+    rem = host.remainder
+    rem_route = {"type": type(rem).__name__}
+    if hasattr(rem, "pairs_per_step"):
+        rem_route.update(windowed_route(rem))
+    op = host.to(dev)
+    print(f"hub: dc1 {csr.shape[0]} rows, {csr.nnz} nnz; auto_format "
+          f"(allow_hub) {t1 - t0:.2f} s -> HubExtracted with {op.n_hubs} "
+          f"hubs, remainder {rem_route}")
+    v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
+    v = torch.from_numpy(v_host).to(dev)
+    oracle, cond = oracle_parts(csr, v_host)
+    torch.cuda.synchronize()
+    reset_counts()
+    one = matches_oracle(spmm_any(op, v), oracle, cond, torch.float32)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    ms = cuda_ms(lambda: spmm_any(op, v), 50)
+    lib = to_torch_sparse(csr, device=dev)
+    lib_ms = cuda_ms(lambda: spmm_library(lib, v), 50)
+    print(f"hub one-shot spmm_any correct={one}, {ms} ms; library call on "
+          f"the whole matrix {lib_ms} ms; launches {counts}")
+    print(json.dumps({"path": "hub_dc1_k32", "n_hubs": op.n_hubs,
+                      "remainder": rem_route, "correct": one,
+                      "spmm_ms": ms, "library_ms": lib_ms,
+                      "launches": counts, "power": power}))
+    check(one, "the hub route disagrees with the f64 oracle")
+    check(rem_route["type"] != "WindowedPairs" or counts["B2"] == 1,
+          f"the hub's windowed remainder did not run its kernels: {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -1366,6 +1787,18 @@ def main() -> int:
     # 6. two-pair path (B3, B4, B7), 7. phased chain (B6)
     kernels.extend(two_pair_phase(dev, csr, power))
     kernels.append(phased_phase(dev, csr, power))
+    del csr
+
+    # 8. GCN training on the model benchmark's graph, and a GAT;
+    # 9. on the cop20k mesh graph (B2 + B1 under autograd); 10. hub route
+    gcn_100k_phase(dev, power)
+    b1_r256, per_step = gcn_mesh_phase(dev, power)
+    hub_phase(dev, power)
+    for e in kernels:
+        if e["name"].split()[0] in per_step:
+            e["gcn_mesh_launches_per_step"] = per_step[e["name"].split()[0]]
+        if e["name"].split()[0] == "B1":
+            e["r256_k128"] = {key: b1_r256[key] for key in ENTRY_KEYS[:5]}
     kernels.sort(key=lambda e: e["name"])
     if "jax" in sys.modules:
         raise PhaseFailed("the port imported jax")

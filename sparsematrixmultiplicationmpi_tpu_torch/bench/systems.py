@@ -1,9 +1,11 @@
-"""Linear systems the benchmarks solve.
+"""Systems the benchmarks solve and graphs they train on.
 
 ``spd_banded_system`` is the SPD matrix of the JAX package's model
 benchmark (``scripts/run_models_bench.py``, the CG solve): a banded
-FEM-like matrix, made symmetric and diagonally dominant. Host-side numpy,
-bit-identical to that script's recipe.
+FEM-like matrix, made symmetric and diagonally dominant. ``gcn_task`` is
+that benchmark's GCN task (its 100,000-node graph), ``mesh_gcn_task`` the
+same widths on the cop20k_A stand-in's FEM mesh. Host-side numpy,
+bit-identical to the recipes they follow.
 """
 
 from __future__ import annotations
@@ -11,10 +13,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..formats.matrix import CSR
-from ..io.generate import banded_csr
+from ..io.generate import banded_csr, cop20k_like
 from ..io.mtx import expand_and_build_csr
+from ..models.gcn import normalize_adjacency, synthetic_node_classification
 
-__all__ = ["spd_banded_system"]
+__all__ = ["spd_banded_system", "gcn_task", "mesh_gcn_task"]
 
 
 def spd_banded_system(m: int, seed: int = 2, dtype=np.float32) -> CSR:
@@ -36,3 +39,31 @@ def spd_banded_system(m: int, seed: int = 2, dtype=np.float32) -> CSR:
         np.concatenate([rows, diag]),
         np.concatenate([sym.col_indices, diag]),
         np.concatenate([sym.values, deg + 1.0]), m, m, False).astype(dtype)
+
+
+def gcn_task(n: int = 100_000, f: int = 64, c: int = 16,
+             avg_degree: int = 16, seed: int = 1):
+    """The model benchmark's GCN task (``scripts/run_models_bench.py``,
+    its graph and features): ``(normalize_adjacency(adj), x (n, f) f32,
+    labels (n,) int32, train_mask (n,) bool)``, host arrays."""
+    adj, x, labels, mask = synthetic_node_classification(
+        n, f, c, avg_degree=avg_degree, seed=seed)
+    return normalize_adjacency(adj), x, labels, mask
+
+
+def mesh_gcn_task(f: int = 64, c: int = 16, seed: int = 0,
+                  scale: float = 1.0):
+    """A node-classification task on a FEM mesh: the normalized
+    adjacency of ``cop20k_like(scale=scale)`` (121,192 nodes at full
+    size) in f32, with labels, class-correlated features (class centres
+    times 2 plus unit noise, as ``synthetic_node_classification`` makes
+    them) and a 70 % train mask drawn from ``seed``. Returns host arrays
+    as ``gcn_task`` does."""
+    a_hat = normalize_adjacency(cop20k_like(scale=scale).astype(np.float32))
+    m = a_hat.shape[0]
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, c, size=m)
+    centers = rng.normal(size=(c, f)) * 2.0
+    x = (centers[labels] + rng.normal(size=(m, f))).astype(np.float32)
+    mask = rng.uniform(size=m) < 0.7
+    return a_hat, x, labels.astype(np.int32), mask

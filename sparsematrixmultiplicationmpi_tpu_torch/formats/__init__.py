@@ -1,4 +1,5 @@
 from .banded import BandedBlocks, band_coverage
+from .hub import MAX_HUB_COLS, HubExtracted, split_hub_columns
 from .matrix import COO, CSR, ELL, BucketedELL
 from .reorder import (
     apply_symmetric_permutation, bandwidth, permute_rows, rcm_ordering,
@@ -6,7 +7,8 @@ from .reorder import (
 from .windowed import CompactTiles, WindowedPairs
 
 __all__ = [
-    "BandedBlocks", "band_coverage", "COO", "CSR", "ELL", "BucketedELL",
+    "BandedBlocks", "band_coverage", "HubExtracted", "MAX_HUB_COLS",
+    "split_hub_columns", "COO", "CSR", "ELL", "BucketedELL",
     "WindowedPairs", "CompactTiles", "apply_symmetric_permutation",
     "bandwidth", "permute_rows", "rcm_ordering",
 ]

@@ -25,10 +25,10 @@ class LanczosResult(NamedTuple):
 
 def lanczos(spmm: Callable[[torch.Tensor], torch.Tensor], n: int,
             steps: int, *, seed: int = 0, dtype=torch.float64,
-            device=None) -> LanczosResult:
+            device="cuda") -> LanczosResult:
     """Run ``steps`` Lanczos iterations with full reorthogonalization.
     ``spmm`` maps ``(n, 1) -> (n, 1)`` (a symmetric operator) on
-    ``device`` (default CPU)."""
+    ``device``: the card unless the caller passes ``"cpu"``."""
     gen = torch.Generator().manual_seed(seed)
     v0 = torch.randn(n, generator=gen, dtype=dtype).to(device)
     vectors = torch.zeros((steps, n), dtype=dtype, device=device)
@@ -56,9 +56,10 @@ def lanczos(spmm: Callable[[torch.Tensor], torch.Tensor], n: int,
 
 def topk_eigsh(spmm: Callable[[torch.Tensor], torch.Tensor], n: int,
                k: int, *, steps: int | None = None, seed: int = 0,
-               dtype=torch.float64, device=None
+               dtype=torch.float64, device="cuda"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k (largest magnitude) eigenpairs of a symmetric operator:
+    """Top-k (largest magnitude) eigenpairs of a symmetric operator on
+    ``device`` (the card unless the caller passes ``"cpu"``):
     ``(eigenvalues (k,), eigenvectors (n, k))``."""
     if steps is None:
         steps = min(max(4 * k, 32), n)

@@ -31,9 +31,10 @@ def normalize_columns(csr: CSR) -> CSR:
 
 def pagerank(spmm: Callable[[torch.Tensor], torch.Tensor], n: int, *,
              damping: float = 0.85, tol: float = 1e-8, max_iter: int = 200,
-             dtype=torch.float64, device=None):
+             dtype=torch.float64, device="cuda"):
     """PageRank by power iteration on a column-normalized adjacency
-    (``spmm`` maps ``(n, k) -> (n, k)`` on ``device``, default CPU).
+    (``spmm`` maps ``(n, k) -> (n, k)`` on ``device``: the card unless
+    the caller passes ``"cpu"``).
     Returns ``(ranks (n,), iterations)``."""
     r = torch.full((n, 1), 1.0 / n, dtype=dtype, device=device)
     delta = torch.tensor(float("inf"), dtype=dtype, device=device)
@@ -49,9 +50,10 @@ def pagerank(spmm: Callable[[torch.Tensor], torch.Tensor], n: int, *,
 
 def power_iteration(spmm: Callable[[torch.Tensor], torch.Tensor], n: int, *,
                     tol: float = 1e-10, max_iter: int = 500, seed: int = 0,
-                    dtype=torch.float64, device=None):
+                    dtype=torch.float64, device="cuda"):
     """Dominant eigenpair of a square sparse matrix by power iteration,
-    from a start vector drawn by a ``torch.Generator`` seeded by ``seed``.
+    on ``device`` (the card unless the caller passes ``"cpu"``), from a
+    start vector drawn by a ``torch.Generator`` seeded by ``seed``.
     Returns ``(eigenvalue, eigenvector (n,), iterations)``."""
     gen = torch.Generator().manual_seed(seed)
     v = torch.randn((n, 1), generator=gen, dtype=dtype).to(device)

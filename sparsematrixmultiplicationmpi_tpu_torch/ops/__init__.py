@@ -1,11 +1,16 @@
 from .auto import auto_format, gather_class_estimates, spmm_any
+from .autodiff import make_spmm, make_symmetric_spmm, transpose_csr
 from .banded import spmm_banded
 from .ell import spmm_bucketed, spmm_ell
+from .library import spmm_library, to_torch_sparse
 from .oracle import spmm_coo, spmm_host_f64
+from .sddmm import sddmm, sddmm_coo
 from .windowed import spmm_windowed, windowed_t_chain
 
 __all__ = [
-    "auto_format", "gather_class_estimates", "spmm_any", "spmm_banded",
-    "spmm_bucketed", "spmm_ell", "spmm_coo", "spmm_host_f64",
+    "auto_format", "gather_class_estimates", "spmm_any",
+    "make_spmm", "make_symmetric_spmm", "transpose_csr", "spmm_banded",
+    "spmm_bucketed", "spmm_ell", "spmm_library", "to_torch_sparse",
+    "spmm_coo", "spmm_host_f64", "sddmm", "sddmm_coo",
     "spmm_windowed", "windowed_t_chain",
 ]

@@ -8,8 +8,12 @@ same matrix. The model's constants and the calibrated gather table are
 TPU v5e measurements carried verbatim; an H100 table is later work.
 ``spmm_any`` dispatches on the operand's format.
 
-Hub-column extraction (``allow_hub=True``, ``HubExtracted``) is not
-ported yet and raises.
+``allow_hub=True`` adds the hub-column candidate (``HubExtracted``: a
+dense rank-h correction plus an auto-formatted remainder, the dc1
+circuit class), priced as the JAX package prices it; it is off by
+default, as there. ``spmm_any`` also takes a ``torch.sparse_csr_tensor``
+(``ops/library.py``, the library yardstick), which the search never
+returns.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..formats.banded import BandedBlocks
+from ..formats.hub import HubExtracted, split_hub_columns
 from ..formats.matrix import COO, BucketedELL, CSR
 from ..formats.windowed import HBM_BW, WindowedPairs
 from .banded import spmm_banded
@@ -28,7 +33,8 @@ from .ell import spmm_bucketed
 
 __all__ = ["auto_format", "spmm_any", "gather_class_estimates"]
 
-AutoFormat = Union[WindowedPairs, BandedBlocks, BucketedELL, COO]
+AutoFormat = Union[WindowedPairs, BandedBlocks, BucketedELL, COO,
+                   HubExtracted]
 
 #: Best-case per-unit gather costs (the reference's round-2 fit): the
 #: floor under the calibrated surface below.
@@ -95,17 +101,15 @@ def auto_format(csr: CSR, *, reorder: str | None = "auto",
     windowed tiles or band-dense blocks where they beat the cheaper of
     the two gather formats. ``format_kwargs`` go to
     ``WindowedPairs.from_csr`` / ``BandedBlocks.from_csr`` (e.g.
-    ``k_nominal``, ``block_rows``). The result is host-side; move it with
-    ``.to(device)``."""
+    ``k_nominal``, ``block_rows``). ``allow_hub=True`` opts into
+    hub-column extraction (one level: the remainder is searched without
+    it). The result is host-side; move it with ``.to(device)``."""
     op, _ = _auto_with_est(csr, reorder, format_kwargs, allow_hub=allow_hub)
     return op
 
 
 def _auto_with_est(csr: CSR, reorder, format_kwargs, allow_hub: bool):
     """(operand, estimated seconds) of the candidate search."""
-    if allow_hub:
-        raise NotImplementedError(
-            "allow_hub=True (HubExtracted, formats/hub.py) is not ported yet")
 
     def _route(fn):
         sig = inspect.signature(fn).parameters
@@ -134,6 +138,27 @@ def _auto_with_est(csr: CSR, reorder, format_kwargs, allow_hub: bool):
         best_dense = min(dense_candidates, key=lambda f: f.est_seconds)
         candidates.append((best_dense.est_seconds, lambda: best_dense))
 
+    if allow_hub:
+        # A column with c_j nonzeros costs ~c_j gather slots a multiply
+        # but only m*4 B of dense streaming as a rank-1 term: break-even
+        # at c_j ~ m*4B / HBM_BW / ELL_S_PER_SLOT.
+        m, _ = csr.shape
+        threshold = max(int(m * 4 / HBM_BW / ELL_S_PER_SLOT), 32)
+        split = split_hub_columns(csr, threshold=threshold)
+        if split is not None:
+            hub_ids, dense_cols, rem = split
+            rem_op, rem_est = _auto_with_est(rem, reorder, format_kwargs,
+                                             allow_hub=False)
+            h = len(hub_ids)
+            est = rem_est + (m * h + h * k_nominal) * 4 / HBM_BW
+
+            def hub_op():
+                return HubExtracted(dense_cols=dense_cols, hub_ids=hub_ids,
+                                    remainder=rem_op, shape=csr.shape,
+                                    est_seconds=est)
+
+            candidates.append((est, hub_op))
+
     best_est, builder = min(candidates, key=lambda t: t[0])
     return builder(), best_est
 
@@ -144,7 +169,20 @@ def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
     CUDA tensors the kernels where the reference ran one: for windowed
     tiles B2 then B1 (U>2), B6 (a phase layout) or B3/B4 (U=2), with the
     spill through B7 under ``ops/ell.py::SPILL_DMA_GATHER``; B5 for bands
-    of ``block_rows <= 128``."""
+    of ``block_rows <= 128``. A ``HubExtracted`` adds its dense
+    correction to its remainder's product; a ``torch.sparse_csr_tensor``
+    takes the library call."""
+    if isinstance(operand, HubExtracted):
+        # One (m, h) @ (h, k) dense product over the hub columns' values,
+        # accumulated in the result's dtype, plus the remainder's own
+        # route. f32 stays full f32 (the reference's HIGHEST): no TF32.
+        base = spmm_any(operand.remainder, v)
+        vh = v.index_select(0, operand.hub_ids)
+        dc = operand.dense_cols
+        if dc.dtype != v.dtype:
+            vh = vh.to(dc.dtype)
+        acc = torch.promote_types(base.dtype, dc.dtype)
+        return base + torch.matmul(dc.to(acc), vh.to(acc)).to(base.dtype)
     if isinstance(operand, WindowedPairs):
         from .windowed import spmm_windowed
 
@@ -170,4 +208,9 @@ def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
         from .oracle import spmm_coo
 
         return spmm_coo(operand, v)
+    if isinstance(operand, torch.Tensor) and operand.layout == \
+            torch.sparse_csr:
+        from .library import spmm_library
+
+        return spmm_library(operand, v)
     raise TypeError(f"unsupported operand format: {type(operand)}")

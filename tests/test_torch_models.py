@@ -14,6 +14,7 @@ roundings per iteration, four iterations.
 """
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -170,7 +171,7 @@ def test_pagerank_matches_jax_f64():
     bell = BucketedELL.from_csr(tnorm).to("cpu")
     jbell = JBucketedELL.from_csr(jnorm)
     ranks, iters = TM.pagerank(lambda v: spmm_bucketed(bell, v), 60,
-                               tol=1e-12)
+                               tol=1e-12, device="cpu")
     jranks, jiters = JM.pagerank(lambda v: j_spmm_bucketed(jbell, v), 60,
                                  tol=1e-12)
     assert iters == int(jiters) < 200
@@ -187,7 +188,7 @@ def _sym(n=60, seed=211, shift=6.0):
 def test_topk_eigsh_matches_jax_and_eigh():
     sym = _sym()
     port, jax_op = _closures(sym)
-    vals, vecs = TM.topk_eigsh(port, 60, k=3, steps=60)
+    vals, vecs = TM.topk_eigsh(port, 60, k=3, steps=60, device="cpu")
     jvals, _ = JM.topk_eigsh(jax_op, 60, k=3, steps=60)
     dense = np.linalg.eigvalsh(sym)
     top3 = dense[np.argsort(-np.abs(dense))[:3]]
@@ -198,7 +199,7 @@ def test_topk_eigsh_matches_jax_and_eigh():
     for i in range(3):
         v = vecs[:, i].numpy()
         assert np.linalg.norm(sym @ v - float(vals[i]) * v) < 1e-6
-    basis = TM.lanczos(port, 60, steps=20).vectors.numpy()
+    basis = TM.lanczos(port, 60, steps=20, device="cpu").vectors.numpy()
     np.testing.assert_allclose(basis @ basis.T, np.eye(20), atol=1e-8)
 
 
@@ -206,7 +207,8 @@ def test_power_iteration_matches_jax_and_eigh():
     d = np.asarray(JG.random_csr(40, 40, 300, seed=42).to_dense())
     sym = d + d.T + 10 * np.eye(40)
     port, jax_op = _closures(sym)
-    lam, vec, iters = TM.power_iteration(port, 40, tol=1e-12)
+    lam, vec, iters = TM.power_iteration(port, 40, tol=1e-12,
+                                         device="cpu")
     jlam, _, _ = JM.power_iteration(jax_op, 40, tol=1e-12)
     eigs = np.linalg.eigvalsh(sym)
     target = eigs[np.argmax(np.abs(eigs))]
@@ -274,3 +276,13 @@ def test_cg_over_auto_band_operand_matches_jax_f32():
     res = b - spmm_host_f64(spd, x.astype(np.float64))
     rel = np.linalg.norm(res, axis=0) / np.linalg.norm(b, axis=0)
     assert rel.max() < 1e-4
+
+
+@pytest.mark.parametrize("fn", ["pagerank", "power_iteration", "lanczos",
+                                "topk_eigsh"])
+def test_model_entry_points_default_to_the_card(fn):
+    # An entry point runs on the card unless the caller asks for the CPU:
+    # on a machine without one the default raises, it does not quietly
+    # run on the CPU.
+    sig = inspect.signature(getattr(TM, fn))
+    assert sig.parameters["device"].default == "cuda"

@@ -231,7 +231,11 @@ def test_unported_options_raise():
         tc, **kw)
     assert_windowed_equal(jw, tw)
     assert (tw.phases is None) == (jw.phases is None)
-    with pytest.raises(NotImplementedError, match="hub"):
-        TA.auto_format(tc, allow_hub=True)
+    # allow_hub=True is ported (HubExtracted): the pick and its cost
+    # estimate match the JAX package's.
+    jop, op = JA.auto_format(jc, allow_hub=True), TA.auto_format(
+        tc, allow_hub=True)
+    assert type(op).__name__ == type(jop).__name__
+    assert op.est_seconds == jop.est_seconds
     with pytest.raises(ValueError, match="pairs_per_step"):
         TW.WindowedPairs.from_csr(tc, pairs_per_step=1)
