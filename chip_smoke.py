@@ -79,12 +79,17 @@ next-state epilogue; dec). Phases:
    against CPU float64 the same way and timed;
 9. GCN training on the cop20k mesh graph (``mesh_gcn_task()``: 121,192
    nodes, 2,745,522 nnz; route ``WindowedPairs`` R = 256, C = 128,
-   U = 16, a spill): B1 at this R and k8 = 128 and 16 against its plain
-   version (``1e-5 * cond + 1e-6``), then the checks and times of
+   U = 16, a spill): the card's compact plane against the host's dense
+   plane bit for bit; B2 at k = 128 and 16 against its plain version bit
+   for bit, and B1 at this R and k8 = 128 and 16 against its plain
+   version on B2's plain slabs and the host's dense plane (``1e-5 * cond
+   + 1e-6``); then the checks and times of
    phase 8, with exactly 4 B1 and 4 B2 launches a training step (the
    forward and backward SpMMs at k = 128 and 16) and no other kernel;
 10. the hub route: ``auto_format(dc1_like(), allow_hub=True)`` at k = 32,
-   f32, must give ``HubExtracted``; a one-shot ``spmm_any`` on the card
+   f32, must give ``HubExtracted`` with the JAX package's pick on that
+   matrix (4 hubs over a ``BucketedELL`` remainder, take-route gathers:
+   no hand-written kernel); a one-shot ``spmm_any`` on the card
    against the f64 oracle in the f32 tier, timed beside
    ``torch.sparse.mm`` on the whole matrix.
 
@@ -1235,6 +1240,9 @@ GAT_HEADS, GAT_WIDTH = 4, 32
 #: The GCN route the JAX package's format search picks on the cop20k
 #: mesh graph at k_nominal = 128.
 MESH_ROUTE = dict(R=256, C=128, U=16, spill=True)
+#: The JAX package's hub pick on dc1_like at k_nominal = 32 (its
+#: auto_format on the host): hub count and remainder format.
+HUB_DC1 = (4, "BucketedELL")
 
 
 def reset_counts() -> None:
@@ -1258,21 +1266,7 @@ def all_counts() -> dict:
 def step_times(fn, n=GCN_STEPS, warmup=GCN_WARMUP, rounds=GCN_ROUNDS):
     """Milliseconds per ``fn()`` by CUDA events over ``n`` calls after
     ``warmup``: (best, worst) of ``rounds`` rounds."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
+    times = [cuda_ms(fn, n, warmup if i == 0 else 0) for i in range(rounds)]
     return min(times), max(times)
 
 
@@ -1482,10 +1476,12 @@ def gcn_100k_phase(dev, power, n=100_000) -> None:
                       "buckets": buckets, **res, "power": power}))
 
 
-def b1_wide_check(wp, k) -> dict:
-    """B1 at the mesh operand's R = 256 and ``k8 = k`` against its plain
-    version within ``1e-5 * cond + 1e-6``, as phase 3 holds it at R =
-    128; timed, with its bound."""
+def b1_wide_check(wp, dense, k) -> dict:
+    """B2 and B1 at the mesh operand's R = 256 and ``k8 = k``, each against
+    its plain version on the same inputs: B2 bit for bit, B1 (on B2's
+    plain slabs and the host's dense plane ``dense``) within ``1e-5 *
+    cond + 1e-6``, as phase 3 holds them at R = 128; B1 timed, with its
+    bound."""
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
@@ -1497,8 +1493,14 @@ def b1_wide_check(wp, k) -> dict:
 
     v = torch.from_numpy(generate_fat_vector(wp.shape[1], k, seed=k).astype(
         np.float32)).to(wp.device)
-    slabs = cw.chunk_slabs(wp.encode(v).contiguous(), C=wp.chunk_cols,
-                           split=True)
+    v_p = wp.encode(v).contiguous()
+    slabs = cw.chunk_slabs(v_p, C=wp.chunk_cols, split=True)
+    slabs_p = cw.chunk_slabs_plain(v_p, C=wp.chunk_cols, split=True)
+    same = (slabs.shape == slabs_p.shape and torch.equal(
+        slabs.view(torch.int16), slabs_p.view(torch.int16)))
+    print(f"B2 chunk_slabs {tuple(v_p.shape)} -> {tuple(slabs.shape)} "
+          f"bitwise_equal={same}")
+    check(same, f"B2 at k={k} is not bitwise equal to its plain version")
     ct = wp.tiles_t
     args = (wp.pair_block, wp.pair_chunk, wp.block_ptr, ct, slabs)
     kw = dict(nb=wp.n_blocks, pairs_per_step=wp.pairs_per_step, split=True)
@@ -1509,8 +1511,8 @@ def b1_wide_check(wp, k) -> dict:
 
     res = kernel_vs_plain(
         f"B1 windowed_matmul_tmulti R={wp.block_rows} k8={k}",
-        lambda: cw.windowed_matmul_tmulti(*args, **kw), plain,
-        ct.to_dense(), slabs, n=100)
+        lambda: cw.windowed_matmul_tmulti(*args, **kw), plain, dense,
+        slabs_p, n=100)
     rest = (nbytes(slabs, wp.pair_chunk, wp.block_ptr)
             + wp.n_blocks * k * wp.block_rows * 4)
     res.update(bound(ct.nbytes + rest, 2 * 2 * ct.nnz * k, "f32"))
@@ -1534,6 +1536,9 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
     from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
         CompactTiles, WindowedPairs,
     )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        to_tensor,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
 
     t0 = time.perf_counter()
@@ -1554,8 +1559,15 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
     check(all(route[key] == val for key, val in MESH_ROUTE.items())
           and isinstance(wp.tiles_t, CompactTiles),
           f"unexpected mesh GCN route {route}")
+    # the host's dense plane, for B1's plain version: the card's compact
+    # plane must be that plane, bit for bit
+    dense = to_tensor(host.tiles_t, dev)
+    check(torch.equal(wp.tiles_t.to_dense().view(torch.int16),
+                      dense.view(torch.int16)),
+          "the mesh operand's compact plane is not its host's dense plane")
     del host
-    b1 = {k: b1_wide_check(wp, k) for k in (128, 16)}
+    b1 = {k: b1_wide_check(wp, dense, k) for k in (128, 16)}
+    del dense
     res = gcn_train_phase("GCN mesh", dev, a_hat, wp, (x, labels, mask),
                           counted_kernels=("B1", "B2"))
     print(json.dumps({"path": "gcn_train_cop20k_mesh",
@@ -1569,9 +1581,11 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
 
 def hub_phase(dev, power, scale=1.0) -> None:
     """Phase 10: the hub route. ``auto_format(dc1_like(), allow_hub=True)``
-    at k = 32, f32, must give ``HubExtracted``; a one-shot ``spmm_any``
-    on the card against the f64 oracle in the f32 tier, timed beside the
-    library call on the whole matrix."""
+    at k = 32, f32, must give ``HubExtracted`` with ``HUB_DC1`` (the JAX
+    package's pick on the same matrix: 4 hubs over a ``BucketedELL``
+    remainder, whose SpMM is the take route, no hand-written kernel); a
+    one-shot ``spmm_any`` on the card against the f64 oracle in the f32
+    tier, timed beside the library call on the whole matrix."""
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.formats.hub import (
@@ -1593,10 +1607,10 @@ def hub_phase(dev, power, scale=1.0) -> None:
     t1 = time.perf_counter()
     check(isinstance(host, HubExtracted),
           f"dc1 with allow_hub routes to {type(host).__name__}")
-    rem = host.remainder
-    rem_route = {"type": type(rem).__name__}
-    if hasattr(rem, "pairs_per_step"):
-        rem_route.update(windowed_route(rem))
+    rem_route = {"type": type(host.remainder).__name__}
+    check((host.n_hubs, rem_route["type"]) == HUB_DC1,
+          f"dc1's hub pick is {host.n_hubs} hubs over {rem_route}, not "
+          f"{HUB_DC1}")
     op = host.to(dev)
     print(f"hub: dc1 {csr.shape[0]} rows, {csr.nnz} nnz; auto_format "
           f"(allow_hub) {t1 - t0:.2f} s -> HubExtracted with {op.n_hubs} "
@@ -1619,8 +1633,6 @@ def hub_phase(dev, power, scale=1.0) -> None:
                       "spmm_ms": ms, "library_ms": lib_ms,
                       "launches": counts, "power": power}))
     check(one, "the hub route disagrees with the f64 oracle")
-    check(rem_route["type"] != "WindowedPairs" or counts["B2"] == 1,
-          f"the hub's windowed remainder did not run its kernels: {counts}")
 
 
 def main() -> int:

@@ -15,7 +15,9 @@ import numpy as np
 from ..formats.matrix import CSR
 from ..io.generate import banded_csr, cop20k_like
 from ..io.mtx import expand_and_build_csr
-from ..models.gcn import normalize_adjacency, synthetic_node_classification
+from ..models.gcn import (
+    draw_class_features, normalize_adjacency, synthetic_node_classification,
+)
 
 __all__ = ["spd_banded_system", "gcn_task", "mesh_gcn_task"]
 
@@ -55,15 +57,13 @@ def mesh_gcn_task(f: int = 64, c: int = 16, seed: int = 0,
                   scale: float = 1.0):
     """A node-classification task on a FEM mesh: the normalized
     adjacency of ``cop20k_like(scale=scale)`` (121,192 nodes at full
-    size) in f32, with labels, class-correlated features (class centres
-    times 2 plus unit noise, as ``synthetic_node_classification`` makes
-    them) and a 70 % train mask drawn from ``seed``. Returns host arrays
+    size) in f32, with labels, class-correlated features (class by
+    ``draw_class_features``, as ``synthetic_node_classification``
+    makes them) and a 70 % train mask drawn from ``seed``. Returns host arrays
     as ``gcn_task`` does."""
     a_hat = normalize_adjacency(cop20k_like(scale=scale).astype(np.float32))
     m = a_hat.shape[0]
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, c, size=m)
-    centers = rng.normal(size=(c, f)) * 2.0
-    x = (centers[labels] + rng.normal(size=(m, f))).astype(np.float32)
-    mask = rng.uniform(size=m) < 0.7
-    return a_hat, x, labels.astype(np.int32), mask
+    x, mask = draw_class_features(rng, labels, f, c)
+    return a_hat, x.astype(np.float32), labels.astype(np.int32), mask

@@ -156,7 +156,15 @@ def synthetic_node_classification(n: int, n_features: int, n_classes: int,
     adj = expand_and_build_csr(
         rows[idx], cols[idx], vals[idx], n, n, symmetric=False
     )
-    centers = rng.normal(size=(n_classes, n_features)) * 2.0
-    x = centers[labels] + rng.normal(size=(n, n_features))
-    mask = rng.uniform(size=n) < 0.7
+    x, mask = draw_class_features(rng, labels, n_features, n_classes)
     return adj, cast(x, dtype), labels.astype(np.int32), mask
+
+
+def draw_class_features(rng, labels, n_features: int, n_classes: int):
+    """Class-correlated features and a train mask for ``labels``, drawn
+    from ``rng``: class centres times 2 plus unit noise (float64), and a
+    70 % mask."""
+    centers = rng.normal(size=(n_classes, n_features)) * 2.0
+    x = centers[labels] + rng.normal(size=(labels.size, n_features))
+    mask = rng.uniform(size=labels.size) < 0.7
+    return x, mask

@@ -41,6 +41,10 @@ FAMILIES = {
     "powerlaw": lambda g: g.powerlaw_csr(3000, 3000, 30000, seed=3),
 }
 
+#: The hub pick is also held at dc1's full size (116,835 rows), where
+#: the card's smoke runs it: 4 hubs over a BucketedELL remainder.
+PICK_FAMILIES = {**FAMILIES, "dc1_full": lambda g: g.dc1_like()}
+
 
 def _both(make, dtype=np.float32):
     return make(JG).astype(dtype), make(TG).astype(dtype)
@@ -88,9 +92,9 @@ def test_split_returns_none_without_hubs():
     assert split_hub_columns(tc, threshold=400) is None
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", sorted(PICK_FAMILIES))
 def test_auto_format_allow_hub_picks_like_jax(family):
-    jc, tc = _both(FAMILIES[family])
+    jc, tc = _both(PICK_FAMILIES[family])
     jop = JA.auto_format(jc, allow_hub=True)
     op = TA.auto_format(tc, allow_hub=True)
     assert type(op).__name__ == type(jop).__name__
@@ -102,12 +106,21 @@ def test_auto_format_allow_hub_picks_like_jax(family):
                                       np.asarray(jop.dense_cols))
         rem, jrem = op.remainder, jop.remainder
         assert type(rem).__name__ == type(jrem).__name__
-        assert rem.est_seconds == jrem.est_seconds
+        assert (getattr(rem, "est_seconds", None)
+                == getattr(jrem, "est_seconds", None))
+        if isinstance(rem, BucketedELL):
+            for b, jb in zip(rem.buckets, jrem.buckets, strict=True):
+                np.testing.assert_array_equal(b.cols, np.asarray(jb.cols))
+                np.testing.assert_array_equal(b.vals, np.asarray(jb.vals))
+            np.testing.assert_array_equal(rem.row_perm,
+                                          np.asarray(jrem.row_perm))
         if type(rem).__name__ == "WindowedPairs":
             assert (rem.block_rows, rem.chunk_cols, rem.pairs_per_step) == (
                 jrem.block_rows, jrem.chunk_cols, jrem.pairs_per_step)
             np.testing.assert_array_equal(rem.pair_block,
                                           np.asarray(jrem.pair_block))
+    if family == "dc1_full":
+        assert (op.n_hubs, type(op.remainder).__name__) == (4, "BucketedELL")
     # allow_hub is opt-in, as in the JAX package
     assert not isinstance(TA.auto_format(tc), HubExtracted)
 
