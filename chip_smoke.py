@@ -91,7 +91,28 @@ next-state epilogue; dec). Phases:
    matrix (4 hubs over a ``BucketedELL`` remainder, take-route gathers:
    no hand-written kernel); a one-shot ``spmm_any`` on the card
    against the f64 oracle in the f32 tier, timed beside
-   ``torch.sparse.mm`` on the whole matrix.
+   ``torch.sparse.mm`` on the whole matrix;
+11. the strategies on a one-rank NCCL group (``initialize_distributed``
+   on a free local port, ``make_mesh``, ``make_mesh_2d(1, 1)``): what a
+   counted collective costs there; ``Auto`` (the one-device path),
+   ``RowWise``, ``ColumnWise``, ``NonZeroElement`` (psum, scatter),
+   ``Library``, ``Grid2D`` and ``WindowedRowWise`` (U = 16, U = 2 f32
+   and bf16) on the cop20k stand-in at k = 32, ``BandedRowWise`` on the
+   CG system at k = 8, each with its result gathered and left sharded:
+   against the f64 oracle, its ms per multiply beside the one-device
+   ``Auto``'s, its collectives and its launches (1 B2 + 1 B1 a
+   ``WindowedRowWise`` multiply at U = 16, 1 B2 + 1 B3 or B4 at U = 2);
+   ``comm_comp_split`` of ``RowWise`` and ``WindowedRowWise``; the
+   strategy ``Auto`` picks for several ranks; then
+   ``dryrun_multichip(1)`` in a spawned rank;
+12. the kernels of a p = 4 mesh's ranks, one after another in this
+   process: ``WindowedRowWise().partition(cop20k, 4)`` (U = 16) and the
+   U = 2 f32 partition, each route against the JAX package's; for every
+   rank its card copy's compact plane bit for bit its host plane, its
+   halo window cut on the host, B2 on it bit for bit, B1 or B3 against
+   the plain version on the host's dense plane (``1e-5 * cond + 1e-6``)
+   and timed beside its bound, and its rows; the four row blocks,
+   decoded, against the f64 oracle.
 
 Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
@@ -105,8 +126,10 @@ dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 to
-10, one with the kernels (B1 and B2 also with their launches per mesh
-GCN step, B1 with its R = 256, k8 = 128 check), and as the last line
+12, each phase's wall seconds, one with the kernels (B1 and B2 also
+with their launches per mesh GCN step, B1 with its R = 256, k8 = 128
+check; B1 to B4 with their launches a distributed multiply, B1 and B3
+with their per-rank numbers at p = 4), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails or no CUDA device is present. Imports no JAX.
 """
@@ -639,8 +662,8 @@ def counted_auto(**format_kwargs):
     class CountedAuto(Auto):
         body_calls = 0
 
-        def chain_parts(self, operand):
-            enc, body, dec = super().chain_parts(operand)
+        def chain_parts(self, operand, mesh=None, **kwargs):
+            enc, body, dec = super().chain_parts(operand, mesh, **kwargs)
 
             def counted_body(x, op):
                 self.body_calls += 1
@@ -1635,6 +1658,355 @@ def hub_phase(dev, power, scale=1.0) -> None:
     check(one, "the hub route disagrees with the f64 oracle")
 
 
+#: The JAX package's routes of ``WindowedRowWise`` on the cop20k stand-in
+#: at p = 4 (its CPU run on 4 virtual devices): tile shape, input mode,
+#: halo chunks left and right, padded rows per rank.
+P4_ROUTES = {16: dict(R=128, C=128, mode="halo", halo=(49, 47),
+                      s_loc=30336),
+             2: dict(R=256, C=256, mode="halo", halo=(25, 24),
+                     s_loc=30464)}
+#: The kernel each windowed generation runs after B2 on a rank.
+RANK_KERNEL = {(16, "float32"): "B1", (2, "float32"): "B3",
+               (2, "bfloat16"): "B4"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def strategy_case(label, strat, where, csr, v, oracle, cond, dtype,
+                  gathers=(True, False)):
+    """One strategy on the mesh ``where``: its prepare (host clock), then
+    for each ``gather_result`` one multiply with the launch counts and
+    collectives counted, its whole result against the f64 oracle in
+    ``dtype``'s tier, and its ms per multiply (CUDA events, after
+    warm-up). Returns the operand and the numbers."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.utils import (
+        collectives as coll,
+    )
+
+    t0 = time.perf_counter()
+    op = strat.prepare(csr, where)
+    torch.cuda.synchronize()
+    out = {"prepare_s": time.perf_counter() - t0}
+    for gather in gathers:
+        reset_counts()
+        coll.reset_collective_stats()
+        res = strat.spmm(op, v, gather_result=gather)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in all_counts().items() if n}
+        stats = coll.collective_stats()
+        full = res if gather else strat.gather(op, res, v.shape[1])
+        ok = matches_oracle(full, oracle, cond, dtype)
+        ms = cuda_ms(lambda: strat.spmm(op, v, gather_result=gather), 20)
+        out["gathered" if gather else "sharded"] = {
+            "correct": ok, "ms": ms, "launches": launches,
+            "collectives": {k: list(c) for k, c in stats.items()}}
+        print(f"{label} gather_result={gather}: correct={ok}, {ms} ms per "
+              f"multiply; launches {launches}; collectives {stats}")
+        check(ok, f"{label} (gather_result={gather}) disagrees with the f64 "
+              "oracle")
+    return op, out
+
+
+def collective_costs(mesh, dev) -> dict:
+    """What one counted collective costs on the one-rank group, on a
+    (121,216, 32) f32 tensor (the cop20k result): its time by CUDA events
+    over 50 calls, the host's time to issue one, and the host's time to
+    issue one behind ~10 ms of queued device work (``torch.cuda._sleep``:
+    near 10 ms if the call waits for the device); beside a device copy
+    of the same bytes."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.utils import (
+        collectives as coll,
+    )
+
+    x = torch.randn((121216, K), device=dev)
+    out = {"copy_ms": cuda_ms(lambda: x.clone(), 50)}
+    for kind, fn in (("all-gather", lambda: coll.all_gather(x, mesh)),
+                     ("all-reduce", lambda: coll.psum(x, mesh)),
+                     ("reduce-scatter", lambda: coll.psum_scatter(x, mesh))):
+        ms = cuda_ms(fn, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        issue_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        fn()
+        behind_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out[kind] = {"ms": ms, "host_issue_ms": issue_ms,
+                     "host_ms_behind_10ms_of_work": behind_ms}
+    print(f"collectives on the one-rank NCCL group, {x.numel() * 4} B: "
+          f"{out}")
+    return out
+
+
+def strategies_phase(dev, power, csr) -> dict:
+    """Phase 11: every strategy through a one-rank NCCL group on the card
+    at full size (cop20k f32, k = 32; the band strategy on the CG
+    system at k = 8), result gathered and not, against the f64 oracle,
+    with its ms per multiply beside the one-device ``Auto``'s and its
+    collectives; the windowed strategy's launches (1 B2 + 1 B1 at U = 16,
+    1 B2 + 1 B3 or B4 at U = 2) a multiply; ``comm_comp_split`` of
+    ``RowWise`` and ``WindowedRowWise``; ``dryrun_multichip(1)``. Returns
+    each windowed kernel's launches a distributed multiply."""
+    import torch
+    import torch.distributed as dist
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+        spd_banded_system,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.entry import (
+        dryrun_multichip,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import cast
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import (
+        Auto, BandedRowWise, ColumnWise, Grid2D, Library, NonZeroElement,
+        RowWise, WindowedRowWise, initialize_distributed, make_mesh,
+        make_mesh_2d,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.utils.profiling import (
+        comm_comp_split,
+    )
+
+    initialize_distributed(rank=0, world_size=1, device="cuda",
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    res, per_multiply = {}, {}
+    try:
+        mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)
+        check(mesh.size == 1 and mesh.device == dev and
+              dist.get_backend() == "nccl", f"unexpected mesh {mesh}")
+        res["collective_costs"] = collective_costs(mesh, dev)
+        v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(
+            np.float32)
+        v = torch.from_numpy(v_host).to(dev)
+        oracle, cond = oracle_parts(csr, v_host)
+        for label, strat, where in (
+                ("Auto (one device)", Auto(), mesh),
+                ("RowWise", RowWise(), mesh),
+                ("ColumnWise", ColumnWise(), mesh),
+                ("NonZeroElement psum", NonZeroElement(), mesh),
+                ("NonZeroElement scatter", NonZeroElement("scatter"), mesh),
+                ("Library", Library(), mesh),
+                ("Grid2D 1x1", Grid2D(), mesh2)):
+            op, res[label] = strategy_case(label, strat, where, csr, v,
+                                           oracle, cond, torch.float32)
+            if label == "RowWise":
+                res[label]["comm_comp_split_s"] = comm_comp_split(
+                    strat, op, v, inner=10)
+            del op
+        csr_bf = csr.astype(torch.bfloat16)
+        oracle_bf, cond_bf = oracle_parts(csr_bf, cast(v_host,
+                                                       torch.bfloat16))
+        for U, dt in ((16, "float32"), (2, "float32"), (2, "bfloat16")):
+            label = f"WindowedRowWise U={U} {dt}"
+            bf = dt == "bfloat16"
+            strat = WindowedRowWise(pairs_per_step=U)
+            op, r = strategy_case(
+                label, strat, mesh, csr_bf if bf else csr,
+                v.to(torch.bfloat16) if bf else v,
+                oracle_bf if bf else oracle, cond_bf if bf else cond,
+                torch.bfloat16 if bf else torch.float32)
+            r["route"] = dict(R=op.block_rows, C=op.chunk_cols, U=U,
+                              mode=op.input_mode, P=op.pairs.n_pairs,
+                              nb=op.pairs.n_blocks,
+                              spill=op.spill_cols is not None,
+                              tail=0 if op.tail_values is None
+                              else int(op.tail_values.shape[0]))
+            kernel = RANK_KERNEL[(U, dt)]
+            for key in ("gathered", "sharded"):
+                check(r[key]["launches"] == {"B2": 1, kernel: 1},
+                      f"{label}: launches {r[key]['launches']} a multiply, "
+                      f"not one B2 and one {kernel}")
+            per_multiply.setdefault("B2", 1)
+            per_multiply[kernel] = 1
+            if U == 16:
+                r["comm_comp_split_s"] = comm_comp_split(strat, op, v,
+                                                         inner=10)
+            print(f"{label}: route {r['route']}")
+            res[label] = r
+            del op
+        t0 = time.perf_counter()
+        pick = type(Auto()._mesh_route(csr)).__name__
+        res["auto_mesh_route"] = {"pick": pick,
+                                  "seconds": time.perf_counter() - t0}
+        print(f"Auto's pick on a mesh of several ranks: {pick}")
+        spd = spd_banded_system(M_SPD, seed=2)
+        vb_host = generate_fat_vector(M_SPD, K_CG, seed=K_CG).astype(
+            np.float32)
+        o_spd, c_spd = oracle_parts(spd, vb_host)
+        op, r = strategy_case("BandedRowWise", BandedRowWise(
+            k_nominal=K_CG), mesh, spd, torch.from_numpy(vb_host).to(dev),
+            o_spd, c_spd, torch.float32)
+        r["route"] = dict(r=op.block_rows, band=list(op.band.shape),
+                          spill=op.spill_cols is not None)
+        check(r["route"]["band"] == [947, 128, 384]
+              and not r["route"]["spill"],
+              f"unexpected band route {r['route']}")
+        res["BandedRowWise"] = r
+        del op
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(1)
+    res["dryrun_multichip_1"] = {"seconds": time.perf_counter() - t0,
+                                 **reports[0]}
+    print(f"dryrun_multichip(1) on the card: {reports[0]}")
+    one = res["Auto (one device)"]["gathered"]["ms"]
+    for label, r in res.items():
+        if "gathered" in r:
+            print(f"{label}: {r['gathered']['ms']} ms gathered, "
+                  f"{r['sharded']['ms']} ms sharded per multiply; the "
+                  f"one-device Auto {one} ms")
+    print(json.dumps({"path": "strategies_world_size_1", "k": K,
+                      "strategies": res, "power": power}))
+    return per_multiply
+
+
+def rank_kernels_phase(dev, power, csr, p=4) -> dict:
+    """Phase 12: the per-rank kernels at the shapes of a p = 4 mesh, one
+    rank after another in this process. ``WindowedRowWise().partition(
+    csr, 4)`` (U = 16) and the U = 2 f32 partition, each checked against
+    the JAX package's route; for every rank: its card copy's compact
+    plane bit for bit its host plane, its halo window cut on the host,
+    B2 on it bit for bit its plain version, B1 (U = 16) or B3 (U = 2)
+    within ``1e-5 * cond + 1e-6`` of the plain version on the host's
+    dense plane and timed beside its bound, and its rows (spill and
+    row-owned tail included); the four row blocks, decoded, against the
+    f64 oracle. Returns each kernel's per-rank numbers."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        to_tensor,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        CompactTiles,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import (
+        WindowedRowWise,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel.windowed_strategy \
+        import rank_rows, rank_window
+
+    v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
+    oracle, cond_all = oracle_parts(csr, v_host)
+    out = {}
+    for U in (16, 2):
+        kernel = RANK_KERNEL[(U, "float32")]
+        t0 = time.perf_counter()
+        shards = WindowedRowWise(pairs_per_step=U).partition(csr, p)
+        part_s = time.perf_counter() - t0
+        h = shards[0]
+        route = dict(R=h.block_rows, C=h.chunk_cols, mode=h.input_mode,
+                     halo=(h.halo_left, h.halo_right), s_loc=h.s_loc)
+        print(f"p={p} U={U} partition {part_s:.2f} s: route {route}, "
+              f"{h.pairs.n_pairs} pairs and {h.pairs.n_blocks} blocks a "
+              f"rank, spill {h.spill_cols is not None}, tail "
+              f"{0 if h.tail_values is None else len(h.tail_values)} a rank")
+        check(route == P4_ROUTES[U], f"U={U}: route {route}, not the JAX "
+              f"package's {P4_ROUTES[U]}")
+        v_pad = torch.zeros((p * h.s_loc, K), dtype=torch.float32,
+                            device=dev)
+        perm = torch.from_numpy(h.perm).long().to(dev)
+        v_pad[: csr.shape[0]] = torch.from_numpy(v_host).to(dev)[perm]
+        rows, ranks = [], []
+        for d, host in enumerate(shards):
+            op = host.to(dev)
+            hp, cp = host.pairs, op.pairs
+            plane = cp.tiles_t if U > 2 else cp.tiles_split
+            dense = to_tensor(hp.tiles_t if U > 2 else hp.tiles_split, dev)
+            check(isinstance(plane, CompactTiles) and torch.equal(
+                plane.to_dense().view(torch.int16), dense.view(torch.int16)),
+                f"rank {d} U={U}: the card's compact plane is not its host "
+                "plane")
+            window = rank_window(host, v_pad, d)
+            slabs = cw.chunk_slabs(window, C=host.chunk_cols, split=True)
+            slabs_p = cw.chunk_slabs_plain(window, C=host.chunk_cols,
+                                           split=True)
+            check(torch.equal(slabs.view(torch.int16),
+                              slabs_p.view(torch.int16)),
+                  f"rank {d} U={U}: B2 differs from its plain version")
+            nb = cp.n_blocks
+            if U > 2:
+                def run():
+                    return cw.windowed_matmul_tmulti(
+                        cp.pair_block, cp.pair_chunk, cp.block_ptr, plane,
+                        slabs, nb=nb, pairs_per_step=U, split=True)
+
+                def plain(t, s):
+                    return cw.windowed_matmul_tmulti_plain(
+                        cp.pair_block, cp.pair_chunk, t, s, nb=nb,
+                        split=True)
+            else:
+                def run():
+                    return cw.windowed_matmul_split3(
+                        cp.pair_block, cp.pair_chunk, cp.block_ptr, plane,
+                        slabs, nb=nb)
+
+                def plain(t, s):
+                    return cw.windowed_matmul_split3_plain(
+                        cp.pair_block, cp.pair_chunk, t, s, nb=nb)
+            r = kernel_vs_plain(f"rank {d} {kernel} U={U}", run, plain,
+                                dense, slabs_p, n=100)
+            out_bytes = nb * host.block_rows * K * 4
+            r.update(bound(plane.nbytes + nbytes(slabs, cp.pair_chunk,
+                                                 cp.block_ptr) + out_bytes,
+                           2 * 2 * plane.nnz * K, "f32"))
+            runs = np.diff(hp.block_ptr)
+            r.update(rank=d, pairs=cp.n_pairs, entries=plane.nnz,
+                     plane_bytes=plane.nbytes, window_rows=window.shape[0],
+                     empty_pairs=int((np.diff(
+                         plane.pair_nz_ptr.cpu().numpy()) == 0).sum()),
+                     last_block_pairs=int(runs[-1]),
+                     max_other_block_pairs=int(runs[:-1].max(initial=0)))
+            print(f"rank {d} {kernel}: {r['ms']} ms, plain {r['plain_ms']} "
+                  f"ms, bound {r['bound_ms']} ms ({plane.nnz} entries, "
+                  f"{plane.nbytes} B of plane; {r['empty_pairs']} of its "
+                  f"{cp.n_pairs} pairs empty, {r['last_block_pairs']} on "
+                  f"its last block, at most {r['max_other_block_pairs']} on "
+                  "another)")
+            ranks.append(r)
+            rows.append(rank_rows(op, window))
+            del op, dense, slabs, slabs_p
+        got = shards[0].to(dev).decode(torch.cat(rows))
+        ok = matches_oracle(got, oracle, cond_all, torch.float32)
+        print(f"p={p} U={U}: the {p} row blocks assembled and decoded "
+              f"correct={ok}")
+        check(ok, f"p={p} U={U}: the assembled rows disagree with the f64 "
+              "oracle")
+        out[kernel] = {"route": route, "partition_s": part_s,
+                       "correct": ok, "ranks": ranks}
+        del shards
+    print(json.dumps({"path": "rank_kernels_p4_cop20k_k32", **{
+        k: {**v, "ranks": [{key: r[key] for key in (
+            "rank", "ms", "plain_ms", "bound_ms", "max_abs_err", "pairs",
+            "entries", "empty_pairs", "last_block_pairs",
+            "max_other_block_pairs")} for r in v["ranks"]]}
+            for k, v in out.items()},
+        "power": power}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1687,13 +2059,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. build
+    phase_s, t_phase = {}, time.perf_counter()
     _kernel_lib.load_library()
     info = _kernel_lib.build_info
     print(f"build: {info['seconds']:.2f} s -> {info['path']}")
     print(info["ptxas"])
 
+    phase_s["1"] = time.perf_counter() - t_phase
+
     # 2. operand
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     csr = cop20k_like(dtype=np.float32)
     t1 = time.perf_counter()
     host = auto_format(csr)  # Auto().prepare is this, then .to(device)
@@ -1729,11 +2104,17 @@ def main() -> int:
     v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
     v = torch.from_numpy(v_host).to(dev)
 
+    phase_s["2"] = time.perf_counter() - t_phase
+
     # 3. kernels against their plain versions
+    t_phase = time.perf_counter()
     timings = kernel_phase(wp, v)
     spans_blocks_case(dev)
 
+    phase_s["3"] = time.perf_counter() - t_phase
+
     # 4. main path, counted
+    t_phase = time.perf_counter()
     oracle = spmm_host_f64(csr, v_host)
     abs_csr = type(csr)(values=np.abs(csr.values),
                         col_indices=csr.col_indices, row_ptr=csr.row_ptr,
@@ -1793,19 +2174,50 @@ def main() -> int:
         entry("B2", "chunk_slabs", SRC, REPLACES["B2"], counts["B2"],
               timings["B2"])]
 
+    phase_s["4"] = time.perf_counter() - t_phase
+
     # 5. solver path
+    t_phase = time.perf_counter()
     kernels.append(solver_phase(dev, power))
+    phase_s["5"] = time.perf_counter() - t_phase
 
     # 6. two-pair path (B3, B4, B7), 7. phased chain (B6)
+    t_phase = time.perf_counter()
     kernels.extend(two_pair_phase(dev, csr, power))
+    phase_s["6"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     kernels.append(phased_phase(dev, csr, power))
+    phase_s["7"] = time.perf_counter() - t_phase
     del csr
 
     # 8. GCN training on the model benchmark's graph, and a GAT;
     # 9. on the cop20k mesh graph (B2 + B1 under autograd); 10. hub route
+    t_phase = time.perf_counter()
     gcn_100k_phase(dev, power)
     b1_r256, per_step = gcn_mesh_phase(dev, power)
     hub_phase(dev, power)
+    phase_s["8-10"] = time.perf_counter() - t_phase
+
+    # 11. the strategies on one NCCL rank; 12. the kernels of a p = 4
+    # mesh's ranks, one after another
+    t_phase = time.perf_counter()
+    csr = cop20k_like(dtype=np.float32)
+    per_multiply = strategies_phase(dev, power, csr)
+    phase_s["11"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    p4 = rank_kernels_phase(dev, power, csr)
+    phase_s["12"] = time.perf_counter() - t_phase
+    del csr
+    for e in kernels:
+        name = e["name"].split()[0]
+        if name in per_multiply:
+            e["distributed"] = {"launches_per_multiply": per_multiply[name]}
+        if name in p4:
+            e.setdefault("distributed", {})["p4_ranks"] = [
+                {key: r[key] for key in (
+                    "rank", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                for r in p4[name]["ranks"]]
+    print(f"phase wall seconds {json.dumps(phase_s)}")
     for e in kernels:
         if e["name"].split()[0] in per_step:
             e["gcn_mesh_launches_per_step"] = per_step[e["name"].split()[0]]

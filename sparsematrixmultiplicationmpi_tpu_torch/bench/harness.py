@@ -1,12 +1,13 @@
 """Benchmark harness (port of
 ``sparsematrixmultiplicationmpi_tpu/bench/harness.py``, one job).
 
-``run_benchmark`` prepares one strategy's operand on one device, times
-its SpMM — amortized over a chain of iterates, or one call at a time —
-checks the result against the host float64 oracle and returns a
-``BenchRecord`` with the derived rates. Every record names the device it
-ran on (``device_kind``): a CPU run is a CPU number. The sweep runner,
-the re-measure protocol and the CSV/JSON writers are not ported yet.
+``run_benchmark`` prepares one strategy's operand on a mesh (or one
+device), times its SpMM — amortized over a chain of iterates, or one
+call at a time — checks the result against the host float64 oracle and
+returns a ``BenchRecord`` with the derived rates. On a mesh every rank
+runs it and gets the same record. Every record names the device it ran
+on (``device_kind``): a CPU run is a CPU number. The sweep runner, the
+re-measure protocol and the CSV/JSON writers are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..formats.matrix import CSR, array_dtype, as_float64, cast, to_tensor
 from ..io.generate import generate_fat_vector
+from ..parallel.mesh import as_mesh
 from ..parallel.strategies import Strategy
 from ..utils.compare import (
     are_matrices_equal, default_tolerance, max_abs_error,
@@ -89,6 +91,9 @@ class BenchRecord:
     roofline_fraction: Optional[float]
     dtype: str
     device_kind: str
+    gathered: bool = True          # result gathered on every rank
+    comp_time: Optional[float] = None  # comm_comp_split: sharded result
+    comm_time: Optional[float] = None  # and the gather's estimate
     time_upper_bound: Optional[float] = None  # chain time / chain length
 
     def to_dict(self):
@@ -100,22 +105,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
+def run_benchmark(csr: CSR, k: int, strategy: Strategy, mesh, *,
                   matrix_name: str = "matrix", seed: int = 0,
                   warmup: int = 2, iters: int = 5,
                   oracle: Optional[np.ndarray] = None,
-                  check: bool = True, dtype=None, amortized: bool = False,
-                  inner: int = 10) -> BenchRecord:
-    """Benchmark one strategy on one matrix on ``device``.
+                  check: bool = True, gather_result: bool = True,
+                  dtype=None, amortized: bool = False,
+                  inner: int = 10, comm_split: bool = False) -> BenchRecord:
+    """Benchmark one strategy on one matrix on ``mesh`` (a ``Mesh``, or a
+    device for one device).
 
     ``amortized=True`` times the strategy's chain body (``chain_parts``)
     as a two-point slope over ``inner`` back-to-back iterates — the
     marginal cost of one more multiply that an iterative consumer pays,
     with the one-time encode/decode outside — escalating the chain length
     (``inner``, 4x, 16x) until the slope resolves. Otherwise it times one
-    ``spmm`` call at a time.
+    ``spmm`` call at a time. ``gather_result=False`` times the multiply
+    with its result left sharded (it is gathered outside the timing for
+    the check); ``comm_split`` adds ``comm_comp_split``'s estimate.
     """
-    device = torch.device(device)
+    mesh = as_mesh(mesh)
+    device = mesh.device
     if dtype is not None:
         csr = csr.astype(dtype)
     m, n = csr.shape
@@ -127,13 +137,14 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
     v = to_tensor(v_host, device)
 
     t0 = time.perf_counter()
-    operand = strategy.prepare(csr, device)
+    operand = strategy.prepare(csr, mesh)
     _sync(device)
     prepare_time = time.perf_counter() - t0
 
     upper_bound = None
     if amortized:
-        enc, body, dec = strategy.chain_parts(operand)
+        enc, body, dec = strategy.chain_parts(
+            operand, mesh, gather_result=gather_result)
         v_enc = enc(v, operand)
         timing = out_enc = None
         for inner_try in (inner, inner * 4, inner * 16):
@@ -146,8 +157,11 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
         upper_bound = timing.upper_bound
         out = dec(out_enc, operand)
     else:
-        best, out = time_fn(lambda: strategy.spmm(operand, v), device,
-                            warmup=warmup, iters=iters)
+        best, out = time_fn(
+            lambda: strategy.spmm(operand, v, gather_result=gather_result),
+            device, warmup=warmup, iters=iters)
+        if not gather_result:
+            out = strategy.gather(operand, out, k)
     out = out.detach().cpu().double().numpy()
 
     correct = err = None
@@ -169,16 +183,25 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, device, *,
             out, oracle, tolerance=default_tolerance(array_dtype(csr.values)),
             relative=relative, condition_scale=cond)
 
+    comp_time = comm_time = None
+    if comm_split:
+        from ..utils.profiling import comm_comp_split
+
+        _, comp_time, comm_time = comm_comp_split(
+            strategy, operand, v, mesh, inner=inner, warmup=warmup,
+            iters=iters)
+
     resolved = best == best and best > 0
     return BenchRecord(
         matrix=matrix_name, m=m, n=n, nnz=nnz, k=k,
-        strategy=strategy.name, devices=1,
+        strategy=strategy.name, devices=mesh.size,
         execution_time=best, prepare_time=prepare_time,
         correct=correct, max_error=err,
         gflops=2.0 * nnz * k / best / 1e9 if resolved else float("nan"),
         gnnz_per_s=nnz / best / 1e9 if resolved else float("nan"),
         roofline_fraction=sol / best if resolved else None,
         dtype=str(array_dtype(csr.values)).removeprefix("torch."),
-        device_kind=kind,
+        device_kind=kind, gathered=gather_result,
+        comp_time=comp_time, comm_time=comm_time,
         time_upper_bound=upper_bound,
     )

@@ -129,6 +129,17 @@ class CSR:
             shape=(int(shape[0]), int(shape[1])),
         )
 
+    @classmethod
+    def from_dense(cls, dense) -> "CSR":
+        """The nonzeros of a dense host array, row-major."""
+        dense = np.asarray(dense)
+        m, n = dense.shape
+        rows, cols = np.nonzero(dense)
+        row_ptr = np.zeros(m + 1, dtype=np.int32)
+        np.add.at(row_ptr, rows + 1, 1)
+        return cls.from_arrays(dense[rows, cols], cols,
+                               np.cumsum(row_ptr, dtype=np.int32), (m, n))
+
     def to_dense(self) -> np.ndarray:
         return self.to_coo().to_dense()
 
@@ -179,6 +190,22 @@ class COO:
                         np.asarray(self.col_indices)),
                   np.asarray(self.values))
         return out
+
+    def pad_to(self, nnz_padded: int) -> "COO":
+        """Padded with explicit zeros at (0, 0) to ``nnz_padded`` entries
+        (a multiple of the shard count, for an even nnz split)."""
+        pad = int(nnz_padded) - self.nnz
+        if pad < 0:
+            raise ValueError(f"nnz_padded={nnz_padded} < nnz={self.nnz}")
+        if pad == 0:
+            return self
+        zi = np.zeros((pad,), dtype=np.int32)
+        return COO(
+            values=np.concatenate([self.values, np.zeros(
+                (pad,), dtype=self.values.dtype)]),
+            row_indices=np.concatenate([self.row_indices, zi]),
+            col_indices=np.concatenate([self.col_indices, zi]),
+            shape=self.shape)
 
     def to_csr(self) -> CSR:
         m, _ = self.shape

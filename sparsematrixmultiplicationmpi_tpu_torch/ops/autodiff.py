@@ -21,7 +21,8 @@ from ..formats.matrix import CSR
 from ..io.mtx import expand_and_build_csr
 from .auto import auto_format, spmm_any
 
-__all__ = ["make_spmm", "make_symmetric_spmm", "transpose_csr"]
+__all__ = ["make_spmm", "make_symmetric_spmm", "transpose_csr",
+           "make_distributed_symmetric_spmm"]
 
 
 def transpose_csr(csr: CSR) -> CSR:
@@ -57,6 +58,38 @@ def make_symmetric_spmm(operand) -> Callable[[torch.Tensor], torch.Tensor]:
 
     def spmm(v: torch.Tensor) -> torch.Tensor:
         return _SpMM.apply(v, operand, operand)
+
+    return spmm
+
+
+class _DistSpMM(torch.autograd.Function):
+    """``v -> strategy.spmm(operand, v)`` (gathered on every rank) with
+    backward ``g -> strategy.spmm(operand, g)``: the same distributed
+    forward on the gradient (``A^T = A``)."""
+
+    @staticmethod
+    def forward(ctx, v, strategy, operand):
+        ctx.strategy, ctx.operand = strategy, operand
+        return strategy.spmm(operand, v, gather_result=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.strategy.spmm(ctx.operand, g.contiguous(),
+                                 gather_result=True), None, None
+
+
+def make_distributed_symmetric_spmm(strategy, operand
+                                    ) -> Callable[[torch.Tensor],
+                                                  torch.Tensor]:
+    """``v -> A v`` over a mesh (``strategy`` and its prepared
+    ``operand``, e.g. ``RowWise``), with backward ``g -> A g`` (valid when
+    ``A^T = A``, as for a GCN's normalized adjacency). Every rank passes
+    the whole ``v`` and gets the whole product, so when every rank
+    computes the same loss, every rank's gradients are the one-device
+    ones, with no gradient collective."""
+
+    def spmm(v: torch.Tensor) -> torch.Tensor:
+        return _DistSpMM.apply(v, strategy, operand)
 
     return spmm
 

@@ -130,8 +130,11 @@ def test_unported_accelerator_routes_raise():
     meta_v = torch.empty((1024, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for a tensor on meta"):
         TA.spmm_any(u2.to("meta"), meta_v)
+    # Every strategy of the JAX package is ported now (row_wise
+    # included); a name outside the table still raises.
+    assert type(get_strategy("row_wise")).__name__ == "RowWise"
     with pytest.raises(ValueError, match="unknown strategy"):
-        get_strategy("row_wise")
+        get_strategy("bogus")
 
 
 @pytest.mark.parametrize("amortized", [True, False])
