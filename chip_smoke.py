@@ -112,7 +112,24 @@ next-state epilogue; dec). Phases:
    halo window cut on the host, B2 on it bit for bit, B1 or B3 against
    the plain version on the host's dense plane (``1e-5 * cond + 1e-6``)
    and timed beside its bound, and its rows; the four row blocks,
-   decoded, against the f64 oracle.
+   decoded, against the f64 oracle;
+13. the command line (``cli.py``) on the card: ``info`` in a
+   subprocess that must name the card and import no JAX; ``run
+   synthetic:cop20k --k 32 --strategy all --json`` in this process with
+   the counts zeroed (every phrase line, "Results are the same!" for
+   every strategy, five correct records naming the card, one B2 and one
+   B1 per ``auto`` and ``column`` multiply, each strategy's ms beside
+   phase 11's one-rank figure); ``reorder synthetic:cop20k`` to a
+   2.6 M-entry ``.mtx`` read back bit for bit by the native parser, and
+   ``run`` of it ``--strategy auto --amortized`` (one B1 a chain body,
+   one B2); ``convert synthetic:banded --format banded`` (r = 128, no
+   spill) and ``run`` of the ``.npz`` (one B5 a multiply of
+   ``_run_prepared``; the file, loaded outside the command, through
+   ``spmm_any`` on the card against the f64 oracle); ``sweep
+   synthetic:cop20k_small --k 8 32`` (auto, library, row) with a CSV
+   checkpoint and again with ``--resume`` (no job runs), ``read_csv``
+   giving back its records, ``render_report`` naming the card, its
+   ``suspicious_records``.
 
 Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
@@ -126,10 +143,11 @@ dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 to
-12, each phase's wall seconds, one with the kernels (B1 and B2 also
+13, each phase's wall seconds, one with the kernels (B1 and B2 also
 with their launches per mesh GCN step, B1 with its R = 256, k8 = 128
 check; B1 to B4 with their launches a distributed multiply, B1 and B3
-with their per-rank numbers at p = 4), and as the last line
+with their per-rank numbers at p = 4; B1, B2 and B5 with their
+launches in phase 13's command-line runs), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails or no CUDA device is present. Imports no JAX.
 """
@@ -1874,7 +1892,8 @@ def strategies_phase(dev, power, csr) -> dict:
                   f"one-device Auto {one} ms")
     print(json.dumps({"path": "strategies_world_size_1", "k": K,
                       "strategies": res, "power": power}))
-    return per_multiply
+    return per_multiply, {label: r["gathered"]["ms"]
+                          for label, r in res.items() if "gathered" in r}
 
 
 def rank_kernels_phase(dev, power, csr, p=4) -> dict:
@@ -2005,6 +2024,282 @@ def rank_kernels_phase(dev, power, csr, p=4) -> dict:
             for k, v in out.items()},
         "power": power}))
     return out
+
+
+#: One strategy's label in ``spmm-torch run``'s output, the one-rank
+#: label of phase 11, and its canonical name.
+CLI_STRATEGIES = (("Row-wise", "RowWise", "row_wise"),
+                  ("Column-wise", "ColumnWise", "column_wise"),
+                  ("Non-zero Elements", "NonZeroElement psum", "nnz"),
+                  ("Library", "Library", "library"),
+                  ("Auto", "Auto (one device)", "auto"))
+NUM = r"[0-9.eE+-]+"
+
+
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (exit code, its stdout), the
+    output echoed."""
+    import contextlib
+    import io
+
+    from sparsematrixmultiplicationmpi_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print(f"$ spmm-torch {' '.join(argv)}  (rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    print(out, end="")
+    return rc, out
+
+
+def cli_phase(dev, power, kind, one_rank_ms) -> dict:
+    """Phase 13: the port's command line on the card. ``info`` in a
+    subprocess that imports no JAX; ``run synthetic:cop20k --k 32
+    --strategy all`` in this process, counted (every phrase line, every
+    strategy "Results are the same!", five correct records naming the
+    card, B1 and B2 once per ``auto`` and ``column`` multiply, each
+    strategy's ms beside phase 11's one-rank figure); ``reorder`` to a
+    2.6 M-entry ``.mtx`` and ``run`` of it ``--amortized`` (the native
+    parser, the loaded CSR bit for bit the reordered generator's, one B1
+    a chain body); ``convert synthetic:banded --format banded`` and
+    ``run`` of the file (one B5 a call of ``_run_prepared``; the file
+    loaded outside the command against the f64 oracle); a small
+    ``sweep`` with a CSV checkpoint, run again with ``--resume`` (no job
+    runs), its CSV read back, its report and its suspicious rows.
+    Returns B1, B2 and B5's launches in these runs."""
+    import re
+    import tempfile
+
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
+        read_csv, suspicious_records,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.report import (
+        render_report,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        to_tensor,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.reorder import (
+        apply_symmetric_permutation, rcm_ordering,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.serialize import (
+        load_format,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io import native
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        banded_csr, cop20k_like, generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.mtx import (
+        read_matrix_market,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import auto as ops_auto
+    from sparsematrixmultiplicationmpi_tpu_torch.parallel import strategies
+
+    res, launches = {}, {}
+    # A rehearsal on the CPU passes the CPU device (plain versions).
+    where = [] if dev.type == "cuda" else ["--device", "cpu"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # info, in a process of its own that must not import JAX
+        code = ("import runpy, sys\n"
+                "try:\n"
+                "    runpy.run_module('sparsematrixmultiplicationmpi_tpu_"
+                "torch.cli', run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    rc = e.code\n"
+                "print('jax imported:', 'jax' in sys.modules)\n"
+                "sys.exit(rc)\n")
+        info = subprocess.run([sys.executable, "-c", code, "info"],
+                              capture_output=True, text=True, timeout=300)
+        print(f"$ python -m sparsematrixmultiplicationmpi_tpu_torch.cli info"
+              f"  (rc {info.returncode})\n{info.stdout}{info.stderr}", end="")
+        check(info.returncode == 0 and f"] {kind}" in info.stdout
+              and "jax imported: False" in info.stdout,
+              "cli info did not name the card, failed, or imported jax")
+
+        # run --strategy all at full size, counted
+        path = f"{tmp}/run.json"
+        reset_counts()
+        rc, out = run_cli(["run", "synthetic:cop20k", "--k", str(K),
+                           "--strategy", "all", "--json", path, *where])
+        counts = all_counts()
+        check(rc == 0, f"run --strategy all exited {rc}")
+        for pattern in (
+                r"World size: 1", r"Sparse matrix: synthetic:cop20k",
+                r"Matrix size: 121192x121192", rf"Vector size: 121192x{K}",
+                r"Non-zero elements: 2624330", rf"Load time: {NUM} s",
+                rf"Serial Algo Execution time: {NUM} s"):
+            check(re.search(rf"^{pattern}$", out, re.M) is not None,
+                  f"run: no line {pattern!r}")
+        per_strategy = {}
+        for label, one_rank, _ in CLI_STRATEGIES:
+            m = re.search(rf"^{label} Execution time: ({NUM}) s \({NUM} "
+                          rf"Gnnz/s, {NUM} GFLOP/s, {NUM}% of roofline\)$",
+                          out, re.M)
+            check(m is not None, f"run: no timed line for {label}")
+            check(f"\n{label}: Results are the same!\n" in out,
+                  f"run: {label} is not 'Results are the same!'")
+            ms = float(m.group(1)) * 1e3
+            per_strategy[label] = {"ms": ms,
+                                   "phase11_one_rank_ms":
+                                   one_rank_ms[one_rank]}
+            print(f"cli {label}: {ms} ms per multiply (best of 5 one-shot "
+                  f"calls); phase 11 one rank {one_rank_ms[one_rank]} ms "
+                  "(mean of 20)")
+        with open(path) as f:
+            payload = json.load(f)
+        recs = payload["records"]
+        check([r["strategy"] for r in recs] ==
+              [name for _, _, name in CLI_STRATEGIES]
+              and all(r["correct"] is True and r["device_kind"] == kind
+                      for r in recs),
+              "run --json: records " + str([(r["strategy"], r["correct"],
+                                             r["device_kind"]) for r in recs]))
+        # time_fn: two warm-up and five timed calls a strategy; auto and
+        # column each run B2 then B1 a call.
+        calls = 2 * (2 + 5)
+        print(f"cli run --strategy all launches {counts}; {calls} multiplies"
+              " by auto and column")
+        check(counts["B1"] == counts["B2"] == calls,
+              f"B1 {counts['B1']}, B2 {counts['B2']} launches, not one "
+              f"each for the {calls} auto and column multiplies")
+        launches["run_all"] = {"B1": counts["B1"], "B2": counts["B2"],
+                               "multiplies": calls}
+        res["run_all"] = {"strategies": per_strategy, "load_time_s": float(
+            re.search(rf"^Load time: ({NUM}) s$", out, re.M).group(1))}
+
+        # reorder to a 2.6 M-entry .mtx, run it amortized through the
+        # native parser
+        mtx = f"{tmp}/cop20k.mtx"
+        rc, out = run_cli(["reorder", "synthetic:cop20k", mtx])
+        check(rc == 0, f"reorder exited {rc}")
+        check(native.available(), "the native .mtx parser did not build")
+        want = cop20k_like()
+        want = apply_symmetric_permutation(want, rcm_ordering(want))
+        t0 = time.perf_counter()
+        got = read_matrix_market(mtx)
+        parse_s = time.perf_counter() - t0
+        check(all(np.array_equal(getattr(got, f), getattr(want, f))
+                  and getattr(got, f).dtype == getattr(want, f).dtype
+                  for f in ("values", "col_indices", "row_ptr"))
+              and got.shape == want.shape,
+              "the .mtx read back differs from the reordered generator CSR")
+        print(f"reorder: {want.nnz} entries written, read back bit for bit "
+              f"by the native parser in {parse_s:.2f} s")
+        del got, want
+        bodies, route = [0], {}
+
+        class CountedAuto(strategies.Auto):
+            def chain_parts(self, operand, mesh=None, **kwargs):
+                route.update(type=type(operand).__name__,
+                             U=getattr(operand, "pairs_per_step", None))
+                enc, body, dec = super().chain_parts(operand, mesh, **kwargs)
+
+                def counted(x, op):
+                    bodies[0] += 1
+                    return body(x, op)
+
+                return enc, counted, dec
+
+        reset_counts()
+        strategies.STRATEGIES["auto"] = CountedAuto
+        try:
+            rc, out = run_cli(["run", mtx, "--k", str(K), "--strategy",
+                               "auto", "--amortized", *where])
+        finally:
+            strategies.STRATEGIES["auto"] = strategies.Auto
+        counts = all_counts()
+        check(rc == 0 and "Auto: Results are the same!" in out,
+              f"run {mtx} --amortized failed (rc {rc})")
+        print(f"cli run .mtx --amortized: route {route}, launches "
+              f"{counts}; chain bodies {bodies[0]}")
+        check(counts["B1"] == bodies[0] > 0 and counts["B2"] == 1,
+              f"B1 {counts['B1']} launches for {bodies[0]} chain bodies, "
+              f"B2 {counts['B2']} (one encode)")
+        launches["mtx_amortized"] = {"B1": counts["B1"], "B2": counts["B2"],
+                                     "chain_bodies": bodies[0],
+                                     "route": route}
+        res["mtx_amortized"] = {"parse_s": parse_s, "ms": float(re.search(
+            rf"^Auto Execution time: ({NUM}) s", out, re.M).group(1)) * 1e3}
+
+        # convert to the band format, run the prepared file
+        npz = f"{tmp}/band.npz"
+        rc, out = run_cli(["convert", "synthetic:banded", npz, "--format",
+                           "banded"])
+        check(rc == 0 and "[BandedBlocks," in out, f"convert exited {rc}")
+        calls = [0]
+        real_spmm_any = ops_auto.spmm_any
+
+        def counted_spmm_any(op, v):
+            calls[0] += 1
+            return real_spmm_any(op, v)
+
+        reset_counts()
+        ops_auto.spmm_any = counted_spmm_any
+        try:
+            rc, out = run_cli(["run", npz, "--k", "8", *where])
+        finally:
+            ops_auto.spmm_any = real_spmm_any
+        counts = all_counts()
+        check(rc == 0 and "[BandedBlocks]" in out,
+              f"run {npz} exited {rc}")
+        print(f"cli run band.npz launches {counts}; spmm_any calls "
+              f"{calls[0]}")
+        check(counts["B5"] == calls[0] > 0,
+              f"B5 {counts['B5']} launches for {calls[0]} multiplies")
+        launches["prepared_band"] = {"B5": counts["B5"],
+                                     "multiplies": calls[0]}
+        band = load_format(npz)
+        check(band.block_rows == 128 and band.spill is None,
+              f"band route r = {band.block_rows}, spill "
+              f"{band.spill is not None}")
+        csr = banded_csr(100_000, 100, 20).astype(np.float32)
+        v_host = generate_fat_vector(csr.shape[1], 8, seed=0).astype(
+            np.float32)
+        oracle, cond = oracle_parts(csr, v_host)
+        out_t = real_spmm_any(band.to(dev), to_tensor(v_host, dev))
+        ok = matches_oracle(out_t, oracle, cond, torch.float32)
+        print(f"band.npz loaded outside the command: {tuple(band.band.shape)}"
+              f" band, spmm_any on the card correct={ok}")
+        check(ok, "the loaded band file disagrees with the f64 oracle")
+        res["prepared_band"] = {"correct": ok, "ms": float(re.search(
+            rf"^Auto Execution time: ({NUM}) s", out, re.M).group(1)) * 1e3}
+
+        # a small sweep, checkpointed, then resumed
+        swp = ["sweep", "synthetic:cop20k_small", "--k", "8", str(K),
+               "--strategy", "auto", "library", "row",
+               "--csv", f"{tmp}/s.csv", "--json", f"{tmp}/s.json", *where]
+        rc, out = run_cli(swp)
+        check(rc == 0 and len(re.findall(r" ok$", out, re.M)) == 6,
+              f"sweep exited {rc} or not 6 correct jobs")
+        with open(f"{tmp}/s.json") as f:
+            first = json.load(f)["records"]
+        rc, out = run_cli(swp + ["--resume"])
+        check(rc == 0 and " k=" not in out, "the resumed sweep ran a job")
+        rows = read_csv(f"{tmp}/s.csv")
+        check(len(rows) == 6 and [r.to_dict() for r in rows] == first,
+              "read_csv does not give back the sweep's records")
+        report = render_report(rows)
+        check(f"Hardware: {kind}" in report, "the report does not name the "
+              "card")
+        print(report)
+        flagged = suspicious_records(rows)
+        print("suspicious rows:",
+              [(r.strategy, r.k, why) for r, why in flagged])
+        res["sweep"] = {"jobs": len(rows), "suspicious": len(flagged),
+                        "ms": {f"{r.strategy} k={r.k}":
+                               r.execution_time * 1e3 for r in rows}}
+    print(json.dumps({"path": "cli_cop20k_k32", **res,
+                      "launches": launches, "power": power}))
+    return {"B1": {"run_all": launches["run_all"]["B1"],
+                   "mtx_amortized": launches["mtx_amortized"]["B1"]},
+            "B2": {"run_all": launches["run_all"]["B2"],
+                   "mtx_amortized": launches["mtx_amortized"]["B2"]},
+            "B5": {"prepared_band": launches["prepared_band"]["B5"]}}
 
 
 def main() -> int:
@@ -2202,12 +2497,17 @@ def main() -> int:
     # mesh's ranks, one after another
     t_phase = time.perf_counter()
     csr = cop20k_like(dtype=np.float32)
-    per_multiply = strategies_phase(dev, power, csr)
+    per_multiply, one_rank_ms = strategies_phase(dev, power, csr)
     phase_s["11"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     p4 = rank_kernels_phase(dev, power, csr)
     phase_s["12"] = time.perf_counter() - t_phase
     del csr
+
+    # 13. the command line on the card
+    t_phase = time.perf_counter()
+    cli_launches = cli_phase(dev, power, kind, one_rank_ms)
+    phase_s["13"] = time.perf_counter() - t_phase
     for e in kernels:
         name = e["name"].split()[0]
         if name in per_multiply:
@@ -2223,6 +2523,8 @@ def main() -> int:
             e["gcn_mesh_launches_per_step"] = per_step[e["name"].split()[0]]
         if e["name"].split()[0] == "B1":
             e["r256_k128"] = {key: b1_r256[key] for key in ENTRY_KEYS[:5]}
+        if e["name"].split()[0] in cli_launches:
+            e["cli_launches"] = cli_launches[e["name"].split()[0]]
     kernels.sort(key=lambda e: e["name"])
     if "jax" in sys.modules:
         raise PhaseFailed("the port imported jax")

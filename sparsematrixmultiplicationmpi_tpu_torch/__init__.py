@@ -10,18 +10,22 @@ kernel. The package never imports JAX.
 
 from .formats.banded import BandedBlocks
 from .formats.matrix import COO, CSR, ELL, BucketedELL
+from .formats.serialize import load_format, save_format
 from .formats.windowed import WindowedPairs
 from .io.generate import generate_fat_vector
 from .io.mtx import read_matrix_market, write_matrix_market
 from .ops.auto import auto_format, spmm_any
 from .ops.oracle import spmm_coo, spmm_host_f64
 from .utils.compare import are_matrices_equal, max_abs_error
+from .utils.timing import PhaseTimer, time_fn, time_fn_amortized
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CSR", "COO", "ELL", "BucketedELL", "BandedBlocks", "WindowedPairs",
+    "load_format", "save_format",
     "generate_fat_vector", "read_matrix_market", "write_matrix_market",
     "auto_format", "spmm_any", "spmm_coo", "spmm_host_f64",
-    "are_matrices_equal", "max_abs_error",
+    "are_matrices_equal", "max_abs_error", "PhaseTimer", "time_fn",
+    "time_fn_amortized",
 ]

@@ -17,8 +17,8 @@ Behavioral parity with the reference loader ``Source Code/utils.cpp:70-185``:
   ``FileNotFoundError`` / ``ValueError``.
 
 PyTorch-port counterpart of ``sparsematrixmultiplicationmpi_tpu/io/mtx.py``
-(pure numpy, identical parsing); the optional C++ parser of the JAX
-package is not ported, so ``read_matrix_market`` is the numpy reader.
+(numpy, identical parsing). ``read_matrix_market`` takes the repository's
+C++ parser (``io/native.py``) where it builds.
 """
 
 from __future__ import annotations
@@ -150,8 +150,15 @@ def read_matrix_market_numpy(path: str, dtype=None) -> CSR:
     )
 
 
-def read_matrix_market(path: str, dtype=None) -> CSR:
-    """Load a Matrix Market file into CSR (the numpy reader)."""
+def read_matrix_market(path: str, dtype=None, use_native: bool = True) -> CSR:
+    """Load a Matrix Market file into CSR: with the native parser
+    (``io/native.py``) when ``use_native`` and it builds, else with
+    numpy. Both give the same CSR and raise the same exceptions."""
+    if use_native:
+        from . import native
+
+        if native.available():
+            return native.read_matrix_market_native(path, dtype=dtype)
     return read_matrix_market_numpy(path, dtype=dtype)
 
 

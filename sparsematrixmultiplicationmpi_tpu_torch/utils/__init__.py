@@ -1,7 +1,11 @@
 from .compare import are_matrices_equal, default_tolerance, max_abs_error
-from .timing import AmortizedTiming, measure_amortized, time_fn
+from .timing import (
+    AmortizedTiming, PhaseTimer, Timing, measure_amortized, time_fn,
+    time_fn_amortized,
+)
 
 __all__ = [
     "are_matrices_equal", "default_tolerance", "max_abs_error",
-    "AmortizedTiming", "measure_amortized", "time_fn",
+    "AmortizedTiming", "PhaseTimer", "Timing", "measure_amortized",
+    "time_fn", "time_fn_amortized",
 ]

@@ -5,18 +5,82 @@ On a CUDA tensor every measurement is taken with CUDA events on the
 current stream after warm-up and ends in a synchronize, so it covers the
 device's work and not only its enqueue; on a CPU tensor the host clock
 is the only clock there is. The result says nothing about the device it
-did not run on.
+did not run on. ``PhaseTimer`` records named phases on the host clock,
+each ended by a synchronize of the CUDA device its work ran on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from typing import Dict, List
 
 import torch
 
-__all__ = ["AmortizedTiming", "measure_amortized", "time_fn",
-           "time_region"]
+__all__ = ["AmortizedTiming", "PhaseTimer", "Timing", "measure_amortized",
+           "time_fn", "time_fn_amortized", "time_region"]
+
+
+@dataclasses.dataclass
+class Timing:
+    """One timed measurement (seconds)."""
+
+    name: str
+    seconds: float
+
+    def to_dict(self):
+        return {"name": self.name, "seconds": self.seconds}
+
+
+def _synchronize(target) -> None:
+    """Wait for the device work behind ``target``: a tensor, a device (or
+    its name), or a list, tuple or dict of them. CPU work is done when
+    the call returns."""
+    if isinstance(target, dict):
+        target = list(target.values())
+    if isinstance(target, (list, tuple)):
+        for t in target:
+            _synchronize(t)
+        return
+    device = (target.device if isinstance(target, torch.Tensor)
+              else torch.device(target))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PhaseTimer:
+    """Accumulates named phase timings (the reference's debug timers,
+    ``results_debug.csv``)."""
+
+    def __init__(self):
+        self.records: List[Timing] = []
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync=None):
+        """Time a phase on the host clock. ``sync`` (or ``"sync"`` set in
+        the yielded dict) is a tensor, a device or a collection of them
+        whose CUDA device is synchronized before the clock stops: PyTorch
+        returns before the card has finished."""
+        start = time.perf_counter()
+        result = {}
+        try:
+            yield result
+        finally:
+            target = result.get("sync", sync)
+            if target is not None:
+                _synchronize(target)
+            self.records.append(Timing(name, time.perf_counter() - start))
+
+    def total(self, prefix: str = "") -> float:
+        return sum(r.seconds for r in self.records
+                   if r.name.startswith(prefix))
+
+    def as_dict(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for r in self.records:
+            out[r.name] = out.get(r.name, 0.0) + r.seconds
+        return out
 
 
 def time_region(fn, device: torch.device, n: int = 1) -> float:
@@ -97,3 +161,12 @@ def measure_amortized(fn, v, *args, inner: int = 20, warmup: int = 1,
         upper_bound=t_hi / inner, resolved=resolved, t_lo=t_lo, t_hi=t_hi,
         noise=noise_hi + noise_lo)
     return timing, fn(v, *args)
+
+
+def time_fn_amortized(fn, v, *args, inner: int = 20, warmup: int = 1,
+                      iters: int = 3):
+    """``measure_amortized`` as ``(seconds per call, fn(v, *args))``;
+    NaN when below resolution."""
+    timing, result = measure_amortized(fn, v, *args, inner=inner,
+                                       warmup=warmup, iters=iters)
+    return timing.seconds_per_iter, result
