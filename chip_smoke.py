@@ -120,7 +120,8 @@ next-state epilogue; dec). Phases:
    every strategy, five correct records naming the card, one B2 and one
    B1 per ``auto`` and ``column`` multiply, each strategy's ms beside
    phase 11's one-rank figure); ``reorder synthetic:cop20k`` to a
-   2.6 M-entry ``.mtx`` read back bit for bit by the native parser, and
+   2.6 M-entry ``.mtx`` read back bit for bit by the native parser (and
+   timed beside the numpy parser), and
    ``run`` of it ``--strategy auto --amortized`` (one B1 a chain body,
    one B2); ``convert synthetic:banded --format banded`` (r = 128, no
    spill) and ``run`` of the ``.npz`` (one B5 a multiply of
@@ -2063,10 +2064,11 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
     card, B1 and B2 once per ``auto`` and ``column`` multiply, each
     strategy's ms beside phase 11's one-rank figure); ``reorder`` to a
     2.6 M-entry ``.mtx`` and ``run`` of it ``--amortized`` (the native
-    parser, the loaded CSR bit for bit the reordered generator's, one B1
-    a chain body); ``convert synthetic:banded --format banded`` and
-    ``run`` of the file (one B5 a call of ``_run_prepared``; the file
-    loaded outside the command against the f64 oracle); a small
+    parser, timed beside the numpy parser, the loaded CSR bit for bit
+    the reordered generator's, one B1 a chain body); ``convert
+    synthetic:banded --format banded`` and ``run`` of the file (one B5
+    a call of ``_run_prepared``; the file loaded outside the command
+    against the f64 oracle); a small
     ``sweep`` with a CSV checkpoint, run again with ``--resume`` (no job
     runs), its CSV read back, its report and its suspicious rows.
     Returns B1, B2 and B5's launches in these runs."""
@@ -2095,14 +2097,12 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         banded_csr, cop20k_like, generate_fat_vector,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.io.mtx import (
-        read_matrix_market,
+        read_matrix_market, read_matrix_market_numpy,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops import auto as ops_auto
     from sparsematrixmultiplicationmpi_tpu_torch.parallel import strategies
 
     res, launches = {}, {}
-    # A rehearsal on the CPU passes the CPU device (plain versions).
-    where = [] if dev.type == "cuda" else ["--device", "cpu"]
     with tempfile.TemporaryDirectory() as tmp:
         # info, in a process of its own that must not import JAX
         code = ("import runpy, sys\n"
@@ -2125,7 +2125,7 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         path = f"{tmp}/run.json"
         reset_counts()
         rc, out = run_cli(["run", "synthetic:cop20k", "--k", str(K),
-                           "--strategy", "all", "--json", path, *where])
+                           "--strategy", "all", "--json", path])
         counts = all_counts()
         check(rc == 0, f"run --strategy all exited {rc}")
         for pattern in (
@@ -2188,8 +2188,15 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
                   for f in ("values", "col_indices", "row_ptr"))
               and got.shape == want.shape,
               "the .mtx read back differs from the reordered generator CSR")
+        t0 = time.perf_counter()
+        got = read_matrix_market_numpy(mtx)
+        numpy_parse_s = time.perf_counter() - t0
+        check(all(np.array_equal(getattr(got, f), getattr(want, f))
+                  for f in ("values", "col_indices", "row_ptr")),
+              "the numpy parser reads the .mtx differently")
         print(f"reorder: {want.nnz} entries written, read back bit for bit "
-              f"by the native parser in {parse_s:.2f} s")
+              f"by the native parser in {parse_s} s, by the numpy parser in "
+              f"{numpy_parse_s} s")
         del got, want
         bodies, route = [0], {}
 
@@ -2209,7 +2216,7 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         strategies.STRATEGIES["auto"] = CountedAuto
         try:
             rc, out = run_cli(["run", mtx, "--k", str(K), "--strategy",
-                               "auto", "--amortized", *where])
+                               "auto", "--amortized"])
         finally:
             strategies.STRATEGIES["auto"] = strategies.Auto
         counts = all_counts()
@@ -2223,8 +2230,10 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         launches["mtx_amortized"] = {"B1": counts["B1"], "B2": counts["B2"],
                                      "chain_bodies": bodies[0],
                                      "route": route}
-        res["mtx_amortized"] = {"parse_s": parse_s, "ms": float(re.search(
-            rf"^Auto Execution time: ({NUM}) s", out, re.M).group(1)) * 1e3}
+        res["mtx_amortized"] = {
+            "parse_s": parse_s, "numpy_parse_s": numpy_parse_s,
+            "ms": float(re.search(rf"^Auto Execution time: ({NUM}) s", out,
+                                  re.M).group(1)) * 1e3}
 
         # convert to the band format, run the prepared file
         npz = f"{tmp}/band.npz"
@@ -2241,7 +2250,7 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         reset_counts()
         ops_auto.spmm_any = counted_spmm_any
         try:
-            rc, out = run_cli(["run", npz, "--k", "8", *where])
+            rc, out = run_cli(["run", npz, "--k", "8"])
         finally:
             ops_auto.spmm_any = real_spmm_any
         counts = all_counts()
@@ -2272,7 +2281,7 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
         # a small sweep, checkpointed, then resumed
         swp = ["sweep", "synthetic:cop20k_small", "--k", "8", str(K),
                "--strategy", "auto", "library", "row",
-               "--csv", f"{tmp}/s.csv", "--json", f"{tmp}/s.json", *where]
+               "--csv", f"{tmp}/s.csv", "--json", f"{tmp}/s.json"]
         rc, out = run_cli(swp)
         check(rc == 0 and len(re.findall(r" ok$", out, re.M)) == 6,
               f"sweep exited {rc} or not 6 correct jobs")

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 __all__ = ["main"]
 
@@ -239,13 +238,14 @@ def _run_on_mesh(mesh, args) -> int:
     from .io.generate import generate_fat_vector
     from .parallel import Sequential, get_strategy
     from .utils.compare import default_tolerance
-    from .utils.timing import time_fn
+    from .utils.timing import PhaseTimer, time_fn
 
     lead = mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
-    t0 = time.perf_counter()
-    csr = _load_matrix(args.matrix, args.dtype)
-    load_time = time.perf_counter() - t0
+    timer = PhaseTimer()
+    with timer.phase("load"):
+        csr = _load_matrix(args.matrix, args.dtype)
+    load_time = timer.total("load")
     if isinstance(csr, (BandedBlocks, BucketedELL)):
         return _run_prepared(args, csr, mesh, load_time, say)
     m, n = csr.shape
@@ -407,6 +407,7 @@ def cmd_sweep(args) -> int:
 
 def cmd_convert(args) -> int:
     from .formats.serialize import save_format
+    from .utils.timing import PhaseTimer
 
     csr = _load_matrix(args.input, args.dtype)
     if args.rcm:
@@ -417,19 +418,29 @@ def cmd_convert(args) -> int:
         bw0 = bandwidth(csr)
         csr = apply_symmetric_permutation(csr, rcm_ordering(csr))
         print(f"RCM: bandwidth {bw0} -> {bandwidth(csr)}")
-    t0 = time.perf_counter()
-    if args.format == "csr":
+    timer = PhaseTimer()
+    with timer.phase("build"):
+        obj = _build_format(args.format, csr, args.block_rows)
+    save_format(args.output, obj)
+    print(f"{args.input} -> {args.output} "
+          f"[{type(obj).__name__}, built in {timer.total('build'):.2f} s]")
+    return 0
+
+
+def _build_format(fmt: str, csr, block_rows):
+    """The prepared compute format ``convert`` saves."""
+    if fmt == "csr":
         obj = csr
-    elif args.format == "coo":
+    elif fmt == "coo":
         obj = csr.to_coo()
-    elif args.format == "bucketed":
+    elif fmt == "bucketed":
         from .formats.matrix import BucketedELL
 
         obj = BucketedELL.from_csr(csr)
-    elif args.format == "banded":
+    elif fmt == "banded":
         from .formats.banded import BandedBlocks
 
-        obj = BandedBlocks.from_csr(csr, block_rows=args.block_rows)
+        obj = BandedBlocks.from_csr(csr, block_rows=block_rows)
         if obj is None:
             raise ValueError(
                 "matrix has no profitable band structure; use "
@@ -443,11 +454,7 @@ def cmd_convert(args) -> int:
             raise ValueError(
                 "auto picked WindowedPairs, which has no saved format; use "
                 "--format banded, bucketed, csr or coo")
-    build = time.perf_counter() - t0
-    save_format(args.output, obj)
-    print(f"{args.input} -> {args.output} "
-          f"[{type(obj).__name__}, built in {build:.2f} s]")
-    return 0
+    return obj
 
 
 def cmd_reorder(args) -> int:

@@ -1,13 +1,12 @@
 """ctypes binding for the native f32 -> bf16 hi|lo splitter (port of
 ``sparsematrixmultiplicationmpi_tpu/formats/native_split.py``).
 
-The split planes are built once per windowed operand
-(``formats/windowed.py::_split_planes``) over tile arrays of hundreds of
-MB on the cop20k class. The repository's host C++
-``native/tilesplit.cpp`` does the same round-to-nearest-even conversion
-as torch's f32 -> bf16 cast, on every core; it is built and loaded by
-``io/native.py::load_native``. Without a compiler the caller keeps the
-torch cast.
+The repository's host C++ ``native/tilesplit.cpp`` does the same
+round-to-nearest-even conversion as torch's f32 -> bf16 cast, on every
+core; it is built and loaded by ``io/native.py::load_native``. The
+windowed build (``formats/windowed.py::_split_planes``) keeps torch's
+cast, which every machine has and whose NaN bits are fixed; this
+binding is the JAX package's function, kept for parity.
 """
 
 from __future__ import annotations

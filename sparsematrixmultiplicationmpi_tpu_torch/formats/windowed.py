@@ -136,16 +136,9 @@ def _split_planes(tiles: np.ndarray) -> Optional[np.ndarray]:
     ``uint16`` bf16 bits with ``hi`` in columns [:C] and ``lo`` in [C:] —
     or None for other dtypes. Both roundings are torch's
     round-to-nearest-even f32 -> bf16, the same bits as the JAX package's
-    native / ml_dtypes split: through the native splitter
-    (``formats/native_split.py``, every core) where it builds, else
-    through torch's cast."""
+    native / ml_dtypes split."""
     if tiles.dtype != np.float32:
         return None
-    from .native_split import split_bf16_hilo_native
-
-    native = split_bf16_hilo_native(tiles)
-    if native is not None:
-        return native
     t = torch.from_numpy(np.ascontiguousarray(tiles))
     hi = t.to(torch.bfloat16)
     lo = (t - hi.to(torch.float32)).to(torch.bfloat16)

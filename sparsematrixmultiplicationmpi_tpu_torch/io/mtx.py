@@ -150,15 +150,14 @@ def read_matrix_market_numpy(path: str, dtype=None) -> CSR:
     )
 
 
-def read_matrix_market(path: str, dtype=None, use_native: bool = True) -> CSR:
+def read_matrix_market(path: str, dtype=None) -> CSR:
     """Load a Matrix Market file into CSR: with the native parser
-    (``io/native.py``) when ``use_native`` and it builds, else with
-    numpy. Both give the same CSR and raise the same exceptions."""
-    if use_native:
-        from . import native
+    (``io/native.py``) where it builds, else with numpy. Both give the
+    same CSR and raise the same exceptions."""
+    from . import native
 
-        if native.available():
-            return native.read_matrix_market_native(path, dtype=dtype)
+    if native.available():
+        return native.read_matrix_market_native(path, dtype=dtype)
     return read_matrix_market_numpy(path, dtype=dtype)
 
 

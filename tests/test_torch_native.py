@@ -139,7 +139,7 @@ def test_read_matrix_market_takes_native(tmp_path, built, monkeypatch):
                         lambda *a, **k: calls.append(a) or real(*a, **k))
     _assert_same_csr(read_matrix_market(path), csr)
     assert len(calls) == 1
-    _assert_same_csr(read_matrix_market(path, use_native=False), csr)
+    _assert_same_csr(read_matrix_market_numpy(path), csr)
     assert len(calls) == 1
 
 
@@ -193,11 +193,10 @@ def test_split_nan_stays_nan(built):
                                   want[~np.isnan(want)])
 
 
-def test_split_planes_native_equals_torch(built, monkeypatch):
-    """``_split_planes`` gives the same bits with the native split and
-    without it (the torch cast)."""
+def test_split_planes_native_equals_torch(built):
+    """``_split_planes`` (torch's cast, the only split on the build path)
+    gives the native split's bits on finite values."""
     tiles = _split_inputs()[:76].reshape(4, 19, 130)
-    with_native = _split_planes(tiles)
-    monkeypatch.setattr(ns, "split_bf16_hilo_native", lambda t: None)
-    np.testing.assert_array_equal(_split_planes(tiles), with_native)
+    np.testing.assert_array_equal(_split_planes(tiles),
+                                  ns.split_bf16_hilo_native(tiles))
     assert _split_planes(tiles.astype(np.float64)) is None
