@@ -130,7 +130,25 @@ next-state epilogue; dec). Phases:
    synthetic:cop20k_small --k 8 32`` (auto, library, row) with a CSV
    checkpoint and again with ``--resume`` (no job runs), ``read_csv``
    giving back its records, ``render_report`` naming the card, its
-   ``suspicious_records``.
+   ``suspicious_records``;
+14. narrow k on the kernels (a k that is not a multiple of 8 is
+   zero-padded to 8 on the card; the reference took its dense plain
+   route below k = 12): PageRank at k = 1 on the models benchmark's
+   cop20k graph (``auto_format(k_nominal=1)`` -> ``WindowedPairs``
+   U = 16): B2 bit for bit and B1 against their plain versions at
+   k8 = 8, then with the counts zeroed one B2 and one B1 an iteration
+   and nothing else, a peak device memory far below one dense plane,
+   the ranks within 5e-3 of each rank of a host float64 power iteration
+   and summing to 1, ms per iteration (the 10/60 slope) beside one
+   multiply by the kernels and by the old plain route; ``spmm_any`` at
+   k in {1, 3, 6, 9} on the cop20k stand-in's U = 16, U = 2 f32 and
+   U = 2 bf16 operands (and the U = 16 transposed chain) against the
+   f64 oracle with one B2 and one B1 / B3 / B4 a call, B3 and B4
+   against their plain versions at k8 = 8; ``scripts.run_models_bench``
+   (all checks passed), ``scripts.run_results_sweep`` cut to cop20k at
+   k = 1 and 32 (auto, windowed_row and the bf16 row: all correct on
+   the card) and resumed with no job run again, ``spmm(csr, v)``, and
+   the three ``examples/torch_0*`` scripts with ``--device cuda``.
 
 Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
@@ -144,11 +162,12 @@ dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 to
-13, each phase's wall seconds, one with the kernels (B1 and B2 also
+14, each phase's wall seconds, one with the kernels (B1 and B2 also
 with their launches per mesh GCN step, B1 with its R = 256, k8 = 128
 check; B1 to B4 with their launches a distributed multiply, B1 and B3
 with their per-rank numbers at p = 4; B1, B2 and B5 with their
-launches in phase 13's command-line runs), and as the last line
+launches in phase 13's command-line runs; B1 to B4 with their k8 = 8
+numbers and launches of phase 14), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when any phase fails or no CUDA device is present. Imports no JAX.
 """
@@ -157,6 +176,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2311,6 +2331,416 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
             "B5": {"prepared_band": launches["prepared_band"]["B5"]}}
 
 
+#: Phase 14: the narrow widths of the reference's ``batch_test.sh`` and
+#: the fixed lengths of the PageRank slope.
+NARROW_KS = (1, 3, 6, 9)
+PR_SHORT, PR_LONG = 10, 60
+#: A dense plane of the PageRank operand alone is 674 MB; its compact
+#: plane and vectors stay far below this.
+PR_PEAK_BYTES = 500_000_000
+
+
+def run_main(label, main_fn, argv) -> tuple:
+    """``main_fn(argv)`` in this process: (exit code, its stdout), the
+    output echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    out = buf.getvalue()
+    print(f"$ {label} {' '.join(argv)}  (rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    print(out, end="")
+    return rc, out
+
+
+def padded8(v_p):
+    """``v_p`` with zero columns up to k8 = 8, as the route pads it."""
+    import torch
+
+    return torch.cat([v_p, v_p.new_zeros((v_p.shape[0], 8 - v_p.shape[1]))],
+                     dim=1).contiguous()
+
+
+def narrow_b1_b2(op, host, v_p) -> dict:
+    """B2 (bit for bit) and B1 against their plain versions at k = 1
+    zero-padded to k8 = 8 on a U = 16 card copy, B1's plain version on
+    the host's dense plane; times, bounds (the kernels' inputs at k8 = 8)
+    and the library call at k = 1."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        to_tensor,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+
+    C, nb = op.chunk_cols, op.n_blocks
+    v8 = padded8(v_p)
+    slabs = cw.chunk_slabs(v8, C=C, split=True)
+    slabs_p = cw.chunk_slabs_plain(v8, C=C, split=True)
+    torch.cuda.synchronize()
+    same = torch.equal(slabs.view(torch.int16), slabs_p.view(torch.int16))
+    print(f"B2 at k = 1 padded to 8 {tuple(v8.shape)} -> "
+          f"{tuple(slabs.shape)} bitwise_equal={same}")
+    check(same, "B2 at k8 = 8 is not bitwise equal to its plain version")
+    b2 = {"max_abs_err": 0.0,
+          "ms": cuda_ms(lambda: cw.chunk_slabs(v8, C=C, split=True), 200),
+          "plain_ms": cuda_ms(lambda: cw.chunk_slabs_plain(
+              v8, C=C, split=True), 50),
+          **bound(nbytes(v8, slabs), 0, "f32"), "library_ms": None}
+    ct = op.tiles_t
+    dense = to_tensor(host.tiles_t, v_p.device)
+    kw = dict(nb=nb, pairs_per_step=op.pairs_per_step, split=True)
+    b1 = kernel_vs_plain(
+        "B1 windowed_matmul_tmulti at k = 1 padded to 8",
+        lambda: cw.windowed_matmul_tmulti(
+            op.pair_block, op.pair_chunk, op.block_ptr, ct, slabs, **kw),
+        lambda t, s: cw.windowed_matmul_tmulti_plain(
+            op.pair_block, op.pair_chunk, t, s, nb=nb, split=True),
+        dense, slabs, n=200)
+    rest = nbytes(slabs, op.pair_chunk, op.block_ptr) + nb * 8 * ct.shape[2] * 4
+    b1.update(bound(ct.nbytes + rest, 2 * 2 * ct.nnz * 8, "f32"),
+              library_ms=library_ms("B1 at k = 1", windowed_csr(op), v_p))
+    print(f"B1 at k8 = 8: {b1['ms']} ms, plain {b1['plain_ms']} ms, bound "
+          f"{b1['bound_ms']} ms, library (k = 1) {b1['library_ms']} ms; B2 "
+          f"{b2['ms']} ms, bound {b2['bound_ms']} ms")
+    return {"B1": b1, "B2": b2}
+
+
+def pagerank_phase(dev, power, scale=1.0):
+    """Phase 14a: PageRank at k = 1 on the cop20k stand-in (the models
+    benchmark's: seed 4, ``|values|``, column-normalised, f32,
+    ``auto_format(k_nominal=1)`` -> ``WindowedPairs`` U = 16). B2 and B1
+    against their plain versions at k = 1 padded to 8; PageRank with the
+    counts zeroed: one B2 and one B1 an iteration, no other kernel, the
+    peak device memory far below one dense plane, the ranks within 5e-3
+    of each rank of a host float64 power iteration of the same length and
+    summing to 1; ms per iteration (the 10/60 slope) beside one multiply
+    by the kernels and by the old plain route (``spmm_windowed_xla``,
+    which densifies the compact plane)."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
+        CompactTiles, WindowedPairs,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        cop20k_like, generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.models import (
+        normalize_columns, pagerank,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm_any,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import (
+        spmm_windowed_core, spmm_windowed_xla,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
+        import PAGERANK_RTOL, pagerank_host_f64
+
+    t0 = time.perf_counter()
+    g = cop20k_like(seed=4, scale=scale)
+    g = dataclasses.replace(g, values=np.abs(g.values))
+    norm = normalize_columns(g).astype(np.float32)
+    host = auto_format(norm, k_nominal=1)
+    t1 = time.perf_counter()
+    check(isinstance(host, WindowedPairs) and host.pairs_per_step == 16
+          and host.block_rows % 128 == 0,
+          f"PageRank's operand routes to {type(host).__name__} "
+          f"{windowed_route(host) if isinstance(host, WindowedPairs) else ''}"
+          ", not WindowedPairs U = 16 with R % 128 == 0")
+    op = host.to(dev)
+    check(isinstance(op.tiles_t, CompactTiles), "the PageRank card copy does "
+          "not hold the compact plane")
+    n = norm.shape[0]
+    route = windowed_route(op)
+    print(f"PageRank: cop20k_like(seed=4) normalised, {norm.nnz} nnz; "
+          f"auto_format(k_nominal=1) {t1 - t0:.2f} s -> route {route}")
+    v1 = torch.from_numpy(generate_fat_vector(n, 1, seed=0).astype(
+        np.float32)).to(dev)
+    v_p = op.encode(v1).contiguous()
+    numbers = narrow_b1_b2(op, host, v_p)
+    del host
+
+    def run(tol, max_iter):
+        return pagerank(lambda v: spmm_any(op, v), n, tol=tol,
+                        max_iter=max_iter, dtype=torch.float32, device=dev)
+
+    run(1e-7, 100)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r, it = run(1e-7, 100)
+    torch.cuda.synchronize()
+    counts, peak = all_counts(), torch.cuda.max_memory_allocated()
+    ref = pagerank_host_f64(norm, it)
+    got = r.cpu().double().numpy()
+    rel = float(np.max(np.abs(got - ref) / ref))
+    total = float(r.sum())
+    print(f"PageRank: {it} iterations, launches {counts}, peak device memory "
+          f"{peak} B; ranks vs host f64 max relative error {rel}, sum "
+          f"{total}")
+    check(counts["B1"] == counts["B2"] == it and it > 0
+          and sum(counts.values()) == 2 * it,
+          f"PageRank launches {counts} != one B1 and one B2 in each of "
+          f"{it} iterations")
+    check(peak < PR_PEAK_BYTES, f"PageRank peak device memory {peak} B: a "
+          "dense plane was built")
+    check(rel <= PAGERANK_RTOL, f"PageRank ranks off the f64 iteration by "
+          f"{rel}")
+    check(abs(total - 1.0) <= 1e-4, f"PageRank ranks sum to {total}")
+    t_short = cuda_ms(lambda: run(0.0, PR_SHORT), 3, warmup=1)
+    t_long = cuda_ms(lambda: run(0.0, PR_LONG), 3, warmup=1)
+    per_iter = (t_long - t_short) / (PR_LONG - PR_SHORT)
+    kernel_ms = cuda_ms(lambda: spmm_windowed_core(op, v_p), 50)
+    plain_ms = cuda_ms(lambda: spmm_windowed_xla(op, v_p), 5, warmup=1)
+    print(f"PageRank ms per iteration {per_iter} (slope of {PR_SHORT} and "
+          f"{PR_LONG} iterations: {t_short} / {t_long} ms); one k = 1 "
+          f"multiply in permuted space: kernels {kernel_ms} ms, the old "
+          f"plain route {plain_ms} ms")
+    print(json.dumps({
+        "path": "pagerank_cop20k_k1", "route": route, "nnz": norm.nnz,
+        "iterations": it, "ms_per_iteration": per_iter,
+        "ms_fixed_short": t_short, "ms_fixed_long": t_long,
+        "multiply_kernels_ms": kernel_ms, "multiply_plain_route_ms": plain_ms,
+        "max_rel_err_vs_f64": rel, "rank_sum": total, "launches": counts,
+        "max_memory_allocated": peak, "power": power}))
+    return numbers, it
+
+
+def narrow_grid_phase(dev, power, csr) -> dict:
+    """Phase 14b: ``spmm_any`` on the cop20k stand-in at k in {1, 3, 6, 9}
+    through the U = 16, U = 2 f32 and U = 2 bf16 operands (and, at
+    U = 16, the transposed chain), each against the f64 oracle in its
+    tier with the counts showing only kernels ran: B2 + B1, B2 + B3,
+    B2 + B4. B3 and B4 against their plain versions at k = 1 padded to
+    8; each route's k = 1 multiply timed beside the old plain route.
+    Returns B3's and B4's numbers and each kernel's launches."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
+        cast, to_tensor,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        cuda_windowed as cw,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm_any,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import (
+        spmm_windowed_core, spmm_windowed_xla, windowed_t_chain,
+    )
+
+    csr_bf = csr.astype(torch.bfloat16)
+    cases = (("U16 f32", csr, {}, torch.float32, "B1"),
+             ("U2 f32", csr, {"pairs_per_step": 2}, torch.float32, "B3"),
+             ("U2 bf16", csr_bf, {"pairs_per_step": 2}, torch.bfloat16,
+              "B4"))
+    out, launches, routes = {}, {}, {}
+    for label, mat, kw, dtype, kernel in cases:
+        t0 = time.perf_counter()
+        host = auto_format(mat, **kw)
+        op = host.to(dev)
+        routes[label] = windowed_route(op)
+        print(f"narrow k, {label}: auto_format + to(cuda) "
+              f"{time.perf_counter() - t0:.2f} s, route {routes[label]}")
+        check(op.pairs_per_step == (16 if label.startswith("U16") else 2),
+              f"narrow k, {label}: unexpected route {routes[label]}")
+        v1 = torch.from_numpy(generate_fat_vector(
+            mat.shape[1], 1, seed=0).astype(np.float32)).to(dev).to(dtype)
+        v_p = op.encode(v1).contiguous()
+        if kernel != "B1":
+            split = dtype == torch.float32
+            slabs = cw.chunk_slabs(padded8(v_p), C=op.chunk_cols,
+                                   split=split)
+            fn, plain = ((cw.windowed_matmul_split3,
+                          cw.windowed_matmul_split3_plain) if split else
+                         (cw.windowed_matmul_single,
+                          cw.windowed_matmul_single_plain))
+            args = (op.pair_block, op.pair_chunk)
+            nums = kernel_vs_plain(
+                f"{kernel} at k = 1 padded to 8 ({label})",
+                lambda: fn(*args, op.block_ptr, op.natural_plane, slabs,
+                           nb=op.n_blocks),
+                lambda t, s: plain(*args, t, s, nb=op.n_blocks),
+                to_tensor(host.natural_plane, dev), slabs, n=200)
+            ct = op.natural_plane
+            P, R, _ = ct.shape
+            rest = (nbytes(slabs, op.pair_chunk, op.block_ptr)
+                    + op.n_blocks * R * 8 * 4)
+            fmas = (2 if split else 1) * 2 * ct.nnz * 8
+            nums.update(bound(ct.nbytes + rest, fmas, "f32"))
+            try:
+                nums["library_ms"] = library_ms(
+                    f"{kernel} at k = 1", windowed_csr(op), v_p)
+            except RuntimeError as e:  # a cuSPARSE without bf16 CSR
+                print(f"{kernel}: torch.sparse.mm refused bf16 ({e}); timed "
+                      "on the same entries in f32")
+                nums["library_ms"] = library_ms(
+                    f"{kernel} at k = 1 (f32 operands)",
+                    windowed_csr(op, torch.float32), v_p.float())
+            out[kernel] = nums
+        del host
+        route_ms = cuda_ms(lambda: spmm_windowed_core(op, v_p), 50)
+        plain_ms = cuda_ms(lambda: spmm_windowed_xla(op, v_p), 5, warmup=1)
+        print(f"narrow k, {label}: one k = 1 multiply (permuted space) "
+              f"through the kernels {route_ms} ms, the old plain route "
+              f"{plain_ms} ms")
+        routes[label].update(k1_kernels_ms=route_ms, k1_plain_route_ms=plain_ms)
+        names = ("B2", kernel)
+        for k in NARROW_KS:
+            v_host = generate_fat_vector(mat.shape[1], k, seed=k).astype(
+                np.float32)
+            if dtype == torch.bfloat16:
+                v_host = cast(v_host, torch.bfloat16)
+            v = to_tensor(v_host, dev)
+            oracle, cond = oracle_parts(mat, v_host)
+            reset_counts()
+            got = spmm_any(op, v)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            ok = matches_oracle(got, oracle, cond, dtype)
+            want = {name: int(name in names) for name in counts}
+            print(f"narrow k, {label}, k = {k}: spmm_any correct={ok}, "
+                  f"launches {counts}")
+            check(ok and tuple(got.shape) == (mat.shape[0], k),
+                  f"narrow k, {label}, k = {k}: spmm_any disagrees with the "
+                  "f64 oracle")
+            check(counts == want, f"narrow k, {label}, k = {k}: launches "
+                  f"{counts} != one B2 and one {kernel}")
+            for name in names:
+                launches[name] = launches.get(name, 0) + counts[name]
+            if kernel == "B1" and op.supports_transposed_chain:
+                ch = windowed_t_chain(op, k)
+                check(ch is not None, f"no transposed chain at k = {k}")
+                enc, body, dec = ch
+                reset_counts()
+                got = dec(body(enc(v, op), op), op)
+                torch.cuda.synchronize()
+                counts = all_counts()
+                ok = matches_oracle(got, oracle, cond, dtype)
+                print(f"narrow k, transposed chain, k = {k}: correct={ok}, "
+                      f"launches {counts}")
+                check(ok, f"the transposed chain at k = {k} disagrees with "
+                      "the f64 oracle")
+                check(counts == {**want, "B1": 1, "B2": 1},
+                      f"the transposed chain at k = {k} launched {counts}")
+                launches["B1"] += counts["B1"]
+                launches["B2"] += counts["B2"]
+        del op
+    print(json.dumps({"path": "narrow_k_cop20k", "ks": list(NARROW_KS),
+                      "routes": routes, "launches": launches,
+                      "power": power}))
+    return out, launches
+
+
+def scripts_phase(dev, power, scale=1.0) -> dict:
+    """Phase 14c-e: ``scripts.run_models_bench.main`` (its checks must all
+    pass); ``scripts.run_results_sweep.main`` cut to ``--matrices
+    cop20k_like --ks 1 32 --strategies auto windowed_row`` into a
+    temporary checkpoint (every row correct), then again, resuming with
+    no row run anew; ``spmm(csr, v)`` on the cop20k stand-in (one B2, one
+    B1, against the oracle); the three ``examples/torch_0*`` scripts'
+    ``main`` with ``--device cuda``, in this process. Returns the launches of each. ``scale`` < 1
+    shrinks every problem (a rehearsal off the card)."""
+    import tempfile
+
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
+        read_csv,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        cop20k_like, generate_fat_vector,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
+        run_models_bench, run_results_sweep,
+    )
+
+    launches, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out = run_main("run_models_bench", run_models_bench.main,
+                           ["--out-dir", tmp, "--scale", str(scale)])
+        check(rc == 0, f"run_models_bench exited {rc}")
+        models = json.load(open(os.path.join(tmp, "models_h100.json")))
+        # The script counts each model's launches itself (its checks hold
+        # B5 to the CG iterations + 1, B1 and B2 to one a PageRank step).
+        checked = json.loads(out.strip().splitlines()[-1])
+        res["models"] = {**models, **checked}
+        check(models["hardware"] == power, "models_h100.json names "
+              f"{models['hardware']}, not {power}")
+        launches["models"] = {
+            name: sum(c[name] for c in checked["launches"].values())
+            for name in checked["launches"]["cg_solve"]}
+        check(launches["models"]["B5"] > 0 and launches["models"]["B1"] > 0,
+              f"the models benchmark ran B5 / B1 no time: "
+              f"{launches['models']}")
+
+        argv = ["--matrices", "cop20k_like", "--ks", "1", "32",
+                "--strategies", "auto", "windowed_row", "--out-dir", tmp,
+                "--scale", str(scale)]
+        reset_counts()
+        rc, out = run_main("run_results_sweep", run_results_sweep.main, argv)
+        launches["sweep"] = all_counts()
+        check(rc == 0, f"run_results_sweep exited {rc}")
+        rows = read_csv(os.path.join(tmp, "h100_sweep.csv"))
+        check(len(rows) == 5 and all(r.correct and not r.error
+                                     and r.device_kind != "cpu"
+                                     for r in rows),
+              f"the sweep's rows are not 5 correct card rows: "
+              f"{[(r.strategy, r.k, r.dtype, r.correct, r.error) for r in rows]}")
+        check(launches["sweep"]["B1"] > 0 and launches["sweep"]["B2"] > 0,
+              f"the sweep ran B1 / B2 no time: {launches['sweep']}")
+        rc, out = run_main("run_results_sweep (resumed)",
+                           run_results_sweep.main, argv)
+        check(rc == 0 and "5 records (0 new)" in out,
+              "the resumed sweep ran a job again")
+        res["sweep"] = {f"{r.strategy} k={r.k} {r.dtype}":
+                        r.execution_time * 1e3 for r in rows}
+
+    csr = cop20k_like(dtype=np.float32, scale=scale)
+    v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
+    oracle, cond = oracle_parts(csr, v_host)
+    reset_counts()
+    got = spmm(csr, torch.from_numpy(v_host).to(dev))
+    torch.cuda.synchronize()
+    launches["spmm"] = all_counts()
+    ok = matches_oracle(got, oracle, cond, torch.float32)
+    print(f"spmm(csr, v) on cop20k k = {K}: correct={ok}, launches "
+          f"{launches['spmm']}")
+    check(ok, "spmm(csr, v) disagrees with the f64 oracle")
+    check(launches["spmm"]["B1"] == launches["spmm"]["B2"] == 1,
+          f"spmm(csr, v) launched {launches['spmm']}")
+    del csr
+
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for script, expect in (("torch_01_spmm_basics.py", "Results are the same!"),
+                           ("torch_02_distributed_strategies.py", "library"),
+                           ("torch_03_gcn_training.py", "held-out accuracy")):
+        spec = importlib.util.spec_from_file_location(
+            script[:-3], os.path.join(root, "examples", script))
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        rc, out = run_main(f"examples/{script}", example.main,
+                           ["--device", "cuda"])
+        check(rc == 0 and expect in out and "MISMATCH" not in out,
+              f"examples/{script} exited {rc}")
+    print(json.dumps({"path": "scripts_and_examples", **res,
+                      "launches": launches, "power": power}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2517,6 +2947,17 @@ def main() -> int:
     t_phase = time.perf_counter()
     cli_launches = cli_phase(dev, power, kind, one_rank_ms)
     phase_s["13"] = time.perf_counter() - t_phase
+
+    # 14. narrow k on the kernels: PageRank at k = 1, the k in {1, 3, 6,
+    # 9} grid, the models and results scripts, spmm() and the examples
+    t_phase = time.perf_counter()
+    narrow, pr_iters = pagerank_phase(dev, power)
+    csr = cop20k_like(dtype=np.float32)
+    b3_b4, narrow_launches = narrow_grid_phase(dev, power, csr)
+    narrow.update(b3_b4)
+    del csr
+    script_launches = scripts_phase(dev, power)
+    phase_s["14"] = time.perf_counter() - t_phase
     for e in kernels:
         name = e["name"].split()[0]
         if name in per_multiply:
@@ -2534,6 +2975,19 @@ def main() -> int:
             e["r256_k128"] = {key: b1_r256[key] for key in ENTRY_KEYS[:5]}
         if e["name"].split()[0] in cli_launches:
             e["cli_launches"] = cli_launches[e["name"].split()[0]]
+        name = e["name"].split()[0]
+        if name in narrow:
+            e["narrow_k1"] = {key: narrow[name][key] for key in ENTRY_KEYS}
+        if name in narrow_launches:
+            e["narrow_k_launches"] = narrow_launches[name]
+        if name in ("B1", "B2"):
+            e["pagerank_launches"] = {"iterations": pr_iters,
+                                      "per_iteration": 1}
+        script_counts = {run: counts[name]
+                         for run, counts in script_launches.items()
+                         if counts.get(name)}
+        if script_counts:
+            e["scripts_launches"] = script_counts
     kernels.sort(key=lambda e: e["name"])
     if "jax" in sys.modules:
         raise PhaseFailed("the port imported jax")

@@ -15,17 +15,24 @@ from .formats.windowed import WindowedPairs
 from .io.generate import generate_fat_vector
 from .io.mtx import read_matrix_market, write_matrix_market
 from .ops.auto import auto_format, spmm_any
-from .ops.oracle import spmm_coo, spmm_host_f64
+from .ops.autodiff import make_spmm, make_symmetric_spmm
+from .ops.banded import spmm_banded
+from .ops.ell import spmm_bucketed, spmm_ell
+from .ops.library import spmm_library, to_torch_sparse
+from .ops.oracle import spmm_coo, spmm_dense, spmm_host_f64, spmm_sequential
 from .utils.compare import are_matrices_equal, max_abs_error
 from .utils.timing import PhaseTimer, time_fn, time_fn_amortized
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "CSR", "COO", "ELL", "BucketedELL", "BandedBlocks", "WindowedPairs",
+    "CSR", "COO", "ELL", "BucketedELL", "BandedBlocks",
     "load_format", "save_format",
-    "generate_fat_vector", "read_matrix_market", "write_matrix_market",
-    "auto_format", "spmm_any", "spmm_coo", "spmm_host_f64",
+    "read_matrix_market", "write_matrix_market", "generate_fat_vector",
+    "auto_format", "spmm_any", "make_spmm", "make_symmetric_spmm",
+    "spmm_host_f64", "spmm_sequential", "spmm_coo", "spmm_dense",
+    "spmm_ell", "spmm_bucketed", "spmm_banded",
+    "to_torch_sparse", "spmm_library",
     "are_matrices_equal", "max_abs_error", "PhaseTimer", "time_fn",
-    "time_fn_amortized",
+    "time_fn_amortized", "WindowedPairs",
 ]

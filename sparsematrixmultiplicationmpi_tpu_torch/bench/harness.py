@@ -140,10 +140,11 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, mesh, *,
     as a two-point slope over ``inner`` back-to-back iterates — the
     marginal cost of one more multiply that an iterative consumer pays,
     with the one-time encode/decode outside — escalating the chain length
-    (``inner``, 4x, 16x) until the slope resolves. Otherwise it times one
-    ``spmm`` call at a time. ``gather_result=False`` times the multiply
-    with its result left sharded (it is gathered outside the timing for
-    the check); ``comm_split`` adds ``comm_comp_split``'s estimate.
+    (``inner``, 4x, 16x) until the slope resolves on every rank. Otherwise
+    it times one ``spmm`` call at a time. ``gather_result=False`` times
+    the multiply with its result left sharded (it is gathered outside the
+    timing for the check); ``comm_split`` adds ``comm_comp_split``'s
+    estimate.
     """
     mesh = as_mesh(mesh)
     device = mesh.device
@@ -172,7 +173,7 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, mesh, *,
             timing, out_enc = measure_amortized(
                 body, v_enc, operand, inner=inner_try, warmup=warmup,
                 iters=iters)
-            if timing.resolved:
+            if _all_ranks(timing.resolved, mesh):
                 break
         best = timing.seconds_per_iter
         upper_bound = timing.upper_bound
@@ -226,6 +227,19 @@ def run_benchmark(csr: CSR, k: int, strategy: Strategy, mesh, *,
         comp_time=comp_time, comm_time=comm_time,
         time_upper_bound=upper_bound,
     )
+
+
+def _all_ranks(flag: bool, mesh) -> bool:
+    """``flag`` held on every rank of ``mesh``'s group: each rank reads its
+    own clock, so a rank-local decision to lengthen a chain would leave
+    the ranks issuing different collectives. Not a counted collective."""
+    if mesh.group is None or mesh.size == 1:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)], device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(t.item())
 
 
 def _run_with_timeout(fn, timeout: Optional[float]):

@@ -7,8 +7,8 @@
 Builds the cop20k_A stand-in on the first CUDA device through ``Auto``
 (the options go to its format search, or, for ``--spill-dma-gather``,
 route the spill through kernel B7), encodes a k = 32 fat vector once
-(``--k`` another width: a narrow one not a multiple of 8, such as 1,
-takes the plain path, as on the TPU),
+(``--k`` another width: one not a multiple of 8, such as 1, is
+zero-padded to the next multiple of 8 and runs the kernels),
 then runs 50 back-to-back chain bodies three times: on the host clock
 alone (milliseconds per body, gaps between launches included), on the
 host clock without waiting for the device (the host's own issue time

@@ -5,8 +5,9 @@ The repository's host C++ ``native/tilesplit.cpp`` does the same
 round-to-nearest-even conversion as torch's f32 -> bf16 cast, on every
 core; it is built and loaded by ``io/native.py::load_native``. The
 windowed build (``formats/windowed.py::_split_planes``) keeps torch's
-cast, which every machine has and whose NaN bits are fixed; this
-binding is the JAX package's function, kept for parity.
+cast, which every machine has, with each NaN half rewritten to
+ml_dtypes' bits; this binding is the JAX package's function, kept for
+parity.
 """
 
 from __future__ import annotations
@@ -41,9 +42,10 @@ def split_bf16_hilo_native(tiles: np.ndarray,
                            n_threads: int = 0) -> Optional[np.ndarray]:
     """``(..., C) f32 -> (..., 2C)`` lane-packed ``hi|lo`` split as
     ``uint16`` bf16 bits, or None when the native library is not there.
-    Bit for bit torch's cast (``hi = bf16(x)``, ``lo = bf16(x - hi)``)
-    on every element whose half is not NaN; a NaN half stays NaN (the
-    native split keeps its sign and payload, torch writes ``0x7fc0``)."""
+    Bit for bit ``_split_planes`` (``hi = bf16(x)``, ``lo = bf16(x -
+    hi)``) on every element but a NaN with a payload: the native split
+    keeps a NaN's sign and payload, ``_split_planes`` writes ``0x7fc0``
+    with the sign, as ml_dtypes does."""
     lib = _load()
     if lib is None:
         return None

@@ -135,15 +135,37 @@ def _split_planes(tiles: np.ndarray) -> Optional[np.ndarray]:
     """Lane-packed bf16 ``hi|lo`` split of an f32 tile array — (P, R, 2C)
     ``uint16`` bf16 bits with ``hi`` in columns [:C] and ``lo`` in [C:] —
     or None for other dtypes. Both roundings are torch's
-    round-to-nearest-even f32 -> bf16, the same bits as the JAX package's
-    native / ml_dtypes split."""
+    round-to-nearest-even f32 -> bf16. Torch's cast writes one bit
+    pattern for every NaN, so a NaN half (a NaN value, or the ``lo`` of
+    ±Inf) is rewritten to ``0x7fc0`` with the sign of the f32 it came
+    from: ml_dtypes' bits, which the JAX package's split gives on every
+    input (its native split keeps a NaN's payload too, so the two differ
+    on payload NaNs alone)."""
     if tiles.dtype != np.float32:
         return None
-    t = torch.from_numpy(np.ascontiguousarray(tiles))
-    hi = t.to(torch.bfloat16)
-    lo = (t - hi.to(torch.float32)).to(torch.bfloat16)
-    out = torch.cat([hi, lo], dim=-1)
-    return out.view(torch.int16).numpy().view(np.uint16)
+    tiles = np.ascontiguousarray(tiles)
+    t = torch.from_numpy(tiles)
+    hi = t.to(torch.bfloat16).view(torch.int16)
+    if bool(torch.isfinite(t).all()):
+        lo = (t - hi.view(torch.bfloat16).to(torch.float32)).to(
+            torch.bfloat16).view(torch.int16)
+    else:
+        # Only a non-finite value gives a NaN half (a finite one that
+        # rounds to ±Inf leaves a finite or infinite rest). The rest is
+        # numpy's subtraction from the rewritten hi, as the JAX split's.
+        hi = _nan_bits(hi, t)
+        hi32 = (hi.to(torch.int32) << 16).view(torch.float32)
+        with np.errstate(invalid="ignore"):
+            rest = torch.from_numpy(tiles - hi32.numpy())
+        lo = _nan_bits(rest.to(torch.bfloat16).view(torch.int16), rest)
+    return torch.cat([hi, lo], dim=-1).numpy().view(np.uint16)
+
+
+def _nan_bits(bits: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """bf16 ``bits`` (int16) of f32 ``src`` with each NaN written as
+    ml_dtypes writes it: ``0x7fc0`` carrying the sign of ``src``."""
+    sign = ((src.view(torch.int32) >> 16) & -0x8000).to(torch.int16)
+    return torch.where(torch.isnan(src), sign | 0x7fc0, bits)
 
 
 def _tiles_t(tiles: np.ndarray, tiles_split: Optional[np.ndarray]):

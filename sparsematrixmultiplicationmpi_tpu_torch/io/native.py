@@ -27,7 +27,7 @@ from ..formats.matrix import CSR
 from .mtx import _parse_header, expand_and_build_csr
 
 __all__ = ["available", "build_native", "load_native",
-           "read_matrix_market_native"]
+           "read_matrix_market_native", "native_dir"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -37,6 +37,11 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict = {}
+
+
+def native_dir() -> str:
+    """The repository's ``native/`` directory of host C++ sources."""
+    return NATIVE_SRC_DIR
 
 
 def build_native(name: str) -> Optional[str]:

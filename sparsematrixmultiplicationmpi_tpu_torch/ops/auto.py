@@ -13,7 +13,7 @@ dense rank-h correction plus an auto-formatted remainder, the dc1
 circuit class), priced as the JAX package prices it; it is off by
 default, as there. ``spmm_any`` also takes a ``torch.sparse_csr_tensor``
 (``ops/library.py``, the library yardstick), which the search never
-returns.
+returns. ``spmm`` is the one-shot ``spmm_any(auto_format(csr), v)``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..formats.windowed import HBM_BW, WindowedPairs
 from .banded import spmm_banded
 from .ell import spmm_bucketed
 
-__all__ = ["auto_format", "spmm_any", "gather_class_estimates"]
+__all__ = ["auto_format", "spmm", "spmm_any", "gather_class_estimates"]
 
 AutoFormat = Union[WindowedPairs, BandedBlocks, BucketedELL, COO,
                    HubExtracted]
@@ -214,3 +214,9 @@ def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
 
         return spmm_library(operand, v)
     raise TypeError(f"unsupported operand format: {type(operand)}")
+
+
+def spmm(csr: CSR, v: torch.Tensor) -> torch.Tensor:
+    """One-shot convenience: ``auto_format`` on the host, the operand
+    moved to ``v``'s device, then ``spmm_any``."""
+    return spmm_any(auto_format(csr).to(v.device), v)

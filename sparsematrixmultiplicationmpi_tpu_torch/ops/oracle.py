@@ -5,7 +5,8 @@
 result is checked against (the reference's sequential kernel,
 ``SparseMatrixFatVectorMultiply.cpp:11-31``, also ran in f64 on the host).
 ``spmm_coo`` is the triple loop as one row gather plus an ``index_add_``
-over the COO rows.
+over the COO rows; ``spmm_sequential`` is the single-device oracle over
+it, ``spmm_dense`` the densify-and-matmul oracle for small matrices.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..formats.matrix import COO, CSR, as_float64
 
-__all__ = ["spmm_coo", "spmm_host_f64"]
+__all__ = ["spmm_coo", "spmm_sequential", "spmm_dense", "spmm_host_f64"]
 
 
 def spmm_coo(coo: COO, v: torch.Tensor) -> torch.Tensor:
@@ -26,6 +27,23 @@ def spmm_coo(coo: COO, v: torch.Tensor) -> torch.Tensor:
         0, coo.col_indices)
     out = torch.zeros((m, v.shape[1]), dtype=v.dtype, device=v.device)
     return out.index_add_(0, coo.row_indices, prods)
+
+
+def spmm_sequential(matrix, v: torch.Tensor) -> torch.Tensor:
+    """The single-device correctness oracle (the reference's sequential
+    kernel): a CSR becomes COO on the host, then ``spmm_coo`` on ``v``'s
+    device."""
+    if isinstance(matrix, CSR):
+        matrix = matrix.to_coo()
+    return spmm_coo(matrix.to(v.device), v)
+
+
+def spmm_dense(matrix, v: torch.Tensor) -> torch.Tensor:
+    """Densify-and-matmul oracle, for small test matrices only: the dense
+    matrix in ``v``'s dtype times ``v``."""
+    dense = torch.from_numpy(as_float64(matrix.to_dense())).to(
+        device=v.device, dtype=v.dtype)
+    return torch.matmul(dense, v)
 
 
 def spmm_host_f64(csr: CSR, v) -> np.ndarray:

@@ -8,12 +8,16 @@ block-sorted products:
     slabs[p] = v[pair_chunk[p]*C : (pair_chunk[p]+1)*C]
     out[pair_block[p]] += tiles[p] @ slabs[p]
 
-Dispatch follows the fat vector's device: a CPU tensor takes the plain
-path, a CUDA tensor the Hopper kernels of ``ops/cuda_windowed.py`` behind
-the reference's own routing gates (``k % 8`` with ``KPAD_MIN_K`` padding;
-U>2 transposed planes with ``R % 128`` -> B1, or B6 on a phase layout;
-U=2 -> B3 for split f32 planes, else B4; ``k8 % 16`` for the fused chain
-state), so the card takes the route the TPU took.
+Dispatch follows the fat vector's device (``_takes_kernels``): a CPU
+tensor takes the plain path, a CUDA tensor the Hopper kernels of
+``ops/cuda_windowed.py`` behind the reference's own routing gates (U>2
+transposed planes with ``R % 128`` -> B1, or B6 on a phase layout; U=2
+-> B3 for split f32 planes, else B4; ``k8 % 16`` for the fused chain
+state), with every unaligned ``k`` zero-padded to a multiple of 8. The
+reference sent a narrow unaligned ``k`` (``< KPAD_MIN_K``) to XLA's
+dense route instead; on the card that route would rebuild the dense
+tiles from the compact plane on every call, so the card pads it too (a
+divergence by design). A CPU tensor keeps the reference's routing.
 
 Core functions live in the operand's padded permuted space
 (``WindowedPairs.encode``/``decode``).
@@ -105,19 +109,28 @@ def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     return _finish(wp, out_blocks.reshape(nb * R, k), v_p)
 
 
+def _takes_kernels(wp: WindowedPairs, k: int, device) -> bool:
+    """Whether a width-``k`` product of ``wp`` on ``device`` takes the
+    kernels' route (``k`` zero-padded to a multiple of 8) rather than the
+    plain gather path. On the card: every ``k``, for a U=2 operand and a
+    U>2 one with transposed planes and ``R % 128 == 0``. On the CPU,
+    where the route runs the kernels' plain versions (the transposed
+    chain), the reference's gate: ``k % 8 == 0`` or ``k >= KPAD_MIN_K``."""
+    if torch.device(device).type == "cpu":
+        return k % 8 == 0 or k >= KPAD_MIN_K
+    if wp.pairs_per_step > 2:
+        return wp.tiles_t is not None and wp.block_rows % 128 == 0
+    return True
+
+
 def spmm_windowed_core(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     """Padded-permuted-space SpMM: the plain path for a CPU tensor. For a
-    CUDA tensor, the reference's kernel routing: narrow unaligned ``k``
-    (``< KPAD_MIN_K``) and U>2 formats without a 128-multiple ``R`` take
-    the plain path, other ``k`` are zero-padded to a multiple of 8 and go
-    through the kernels: B2 then B1 (B6 on a phase layout) for U>2, B2
-    then B3 (split f32 planes) or B4 (one plane) for U=2."""
+    CUDA tensor the kernels wherever ``_takes_kernels`` says so, ``k``
+    zero-padded to a multiple of 8: B2 then B1 (B6 on a phase layout) for
+    U>2, B2 then B3 (split f32 planes) or B4 (one plane) for U=2."""
     k = v_p.shape[1]
     k_pad = (-k) % 8
-    if v_p.device.type == "cpu" or (k_pad and k < KPAD_MIN_K):
-        return spmm_windowed_xla(wp, v_p)
-    if wp.pairs_per_step > 2 and (wp.tiles_t is None
-                                  or wp.block_rows % 128):
+    if v_p.device.type == "cpu" or not _takes_kernels(wp, k, v_p.device):
         return spmm_windowed_xla(wp, v_p)
     from .cuda_windowed import spmm_windowed_cuda
 
@@ -139,21 +152,20 @@ def windowed_t_chain(wp: WindowedPairs, k: int):
     next state (``k8 % 16 == 0``; otherwise B1 plus ``resplit_slabs``) or,
     on a phase layout, the phased contraction (B6) plus
     ``resplit_slabs``; ``dec`` adds hi + lo, transposes and undoes the
-    permutation. On CPU
-    tensors the same steps run the kernels' plain versions. Accuracy: the
+    permutation. An unaligned ``k`` is zero-padded to ``k8`` in ``enc``
+    and sliced in ``dec``. On CPU tensors the same steps run the kernels'
+    plain versions, and a narrow unaligned ``k`` gives ``None``, as in the
+    reference (``_takes_kernels``). Accuracy: the
     state round-trips through bf16 hi + lo each step (~4e-6 relative),
     inside the f32 tier of ``utils/compare.py``.
 
     Each returned function takes ``(x, operand)`` like
     ``Strategy.chain_parts`` bodies.
     """
-    if not wp.supports_transposed_chain:
+    if not (wp.supports_transposed_chain
+            and _takes_kernels(wp, k, wp.device)):
         return None
     k8 = -(-k // 8) * 8
-    if k8 != k and k < KPAD_MIN_K:
-        return None  # narrow unaligned k: the plain gather path
-    if wp.device.type != "cpu" and wp.block_rows % 128:
-        return None  # the reference's compiled-kernel gate
     from .cuda_windowed import (
         chunk_slabs, resplit_slabs, windowed_matmul_tmulti,
         windowed_matmul_tmulti_phased,

@@ -282,8 +282,9 @@ def local_windowed(operand: WindowedRowOperand,
     window (no collective): ``spmm_windowed_core`` on the rank's pair
     list, so a CPU tensor takes the plain path and a CUDA tensor the
     one-device kernels behind the same gates (U > 2 with ``R % 128 ==
-    0``: B2 then B1; U = 2: B2 then B3 for f32, B4 for bf16; unaligned
-    ``k >= KPAD_MIN_K`` zero-padded to a multiple of 8 around them)."""
+    0``: B2 then B1; U = 2: B2 then B3 for f32, B4 for bf16; every
+    unaligned ``k`` zero-padded to a multiple of 8 around them, as
+    ``ops/windowed.py::_takes_kernels`` decides)."""
     return spmm_windowed_core(operand.pairs, v_window)[: operand.s_loc]
 
 

@@ -297,3 +297,31 @@ def assemble(c, outs, p):
     if c["strategy"] in ("library", "sequential"):
         return outs[0]
     return np.concatenate(outs)
+
+
+def disagreeing_clocks(mesh):
+    """``run_benchmark(amortized=True)`` on ranks whose clocks disagree:
+    rank 0 finds its first chain's slope resolved, the others only their
+    third (``measure_amortized`` wrapped). Returns how many chains this
+    rank timed and whether the record is correct; the ranks must time
+    the same number, or their collectives no longer pair up."""
+    import dataclasses
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench import harness
+
+    real, calls = harness.measure_amortized, []
+
+    def measure(fn, v, *args, **kwargs):
+        timing, out = real(fn, v, *args, **kwargs)
+        calls.append(kwargs.get("inner"))
+        resolved = mesh.rank == 0 or len(calls) >= 3
+        return dataclasses.replace(timing, resolved=resolved), out
+
+    harness.measure_amortized = measure
+    try:
+        rec = harness.run_benchmark(
+            TG.random_csr(64, 64, 400, seed=1), 4, get_strategy("row"),
+            mesh, warmup=1, iters=1, amortized=True, inner=2)
+    finally:
+        harness.measure_amortized = real
+    return len(calls), rec.correct

@@ -305,11 +305,11 @@ def test_card_copy_holds_only_what_its_route_reads(cuda):
     r16 = _wp(fem3d_csr(256, 4096, seed=0).astype(np.float32), U=8,
               R=16).to(cuda)
     assert r16.tiles is not None and r16.tiles_split is not None
-    # Narrow unaligned k takes the plain path, on tiles rebuilt from tiles_t.
+    # Narrow unaligned k is zero-padded to 8 and runs the kernels too.
     v = generate_fat_vector(512, 5, seed=7).astype(np.float32)
     cw.reset_launch_counts()
     out = spmm_windowed(wp, torch.from_numpy(v).to(cuda))
-    assert cw.launch_counts() == _counts()
+    assert cw.launch_counts() == _counts(B1=1, B2=1)
     ref = spmm_host_f64(csr, v)
     err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < 5e-3
@@ -544,7 +544,7 @@ def test_odd_run_two_pair_operand_is_refused(cuda):
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_two_pair_spmm_on_card_matches_oracle(cuda, dtype, k):
     """The whole U=2 route with a spill: B2 + B3 (f32) or B2 + B4 (bf16)
-    for k = 12, 32 (12 zero-padded to 16); k = 5 takes the plain path."""
+    for every k (5 zero-padded to 8, 12 to 16)."""
     csr = powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
     if dtype == "bfloat16":
         csr = csr.astype(torch.bfloat16)
@@ -562,11 +562,8 @@ def test_two_pair_spmm_on_card_matches_oracle(cuda, dtype, k):
         vt = vt.to(torch.bfloat16)
     cw.reset_launch_counts()
     out = spmm_any(wp, vt)
-    if k == 5:
-        assert cw.launch_counts() == _counts()
-    else:
-        name = "B3" if dtype == np.float32 else "B4"
-        assert cw.launch_counts() == _counts(**{"B2": 1, name: 1})
+    name = "B3" if dtype == np.float32 else "B4"
+    assert cw.launch_counts() == _counts(**{"B2": 1, name: 1})
     ref = spmm_host_f64(csr, vt.cpu().float().numpy())
     err = np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
     assert err < (5e-3 if dtype == np.float32 else 5e-2)
@@ -810,7 +807,7 @@ def test_phased_resident_equals_streamed_bitwise(cuda, dtype):
 
 def test_phased_routes_on_card_match_oracle(cuda):
     """One-shot SpMM and the transposed chain on a multi-phase operand:
-    B2 + B6 per call; the plain narrow-k route on the phase-major planes."""
+    B2 + B6 per call, a narrow unaligned k zero-padded to 8 too."""
     csr = banded_csr(1024, 24, 8, seed=41).astype(np.float32)
     wp = _phased(csr, multi=True).to(cuda)
     assert wp.tiles is None and wp.supports_transposed_chain
@@ -827,7 +824,7 @@ def test_phased_routes_on_card_match_oracle(cuda):
     assert cw.launch_counts() == _counts(B2=2, B6=3)
     v5 = generate_fat_vector(1024, 5, seed=43).astype(np.float32)
     out = spmm_windowed(wp, torch.from_numpy(v5).to(cuda))
-    assert cw.launch_counts() == _counts(B2=2, B6=3)
+    assert cw.launch_counts() == _counts(B2=3, B6=4)
     assert _rel_to_oracle(out, csr, v5) < 5e-3
 
 
