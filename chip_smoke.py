@@ -138,8 +138,9 @@ next-state epilogue; dec). Phases:
    U = 16): B2 bit for bit and B1 against their plain versions at
    k8 = 8, then with the counts zeroed one B2 and one B1 an iteration
    and nothing else, a peak device memory far below one dense plane,
-   the ranks within 5e-3 of each rank of a host float64 power iteration
-   and summing to 1, ms per iteration (the 10/60 slope) beside one
+   the ranks within 1e-4 of each rank of a host float64 power iteration
+   and summing to 1, while the same iteration on the matrix rounded to
+   bf16 (a B1 without its lo plane) misses that limit, ms per iteration (the 10/60 slope) beside one
    multiply by the kernels and by the old plain route; ``spmm_any`` at
    k in {1, 3, 6, 9} on the cop20k stand-in's U = 16, U = 2 f32 and
    U = 2 bf16 operands (and the U = 16 transposed chain) against the
@@ -2418,11 +2419,15 @@ def pagerank_phase(dev, power, scale=1.0):
     ``auto_format(k_nominal=1)`` -> ``WindowedPairs`` U = 16). B2 and B1
     against their plain versions at k = 1 padded to 8; PageRank with the
     counts zeroed: one B2 and one B1 an iteration, no other kernel, the
-    peak device memory far below one dense plane, the ranks within 5e-3
-    of each rank of a host float64 power iteration of the same length and
-    summing to 1; ms per iteration (the 10/60 slope) beside one multiply
+    peak device memory far below one dense plane, the ranks within
+    ``PAGERANK_RTOL`` (1e-4) of each rank of a host float64 power
+    iteration of the same length and summing to 1; the control: the same
+    iteration through the kernels on the matrix rounded to bf16 (what a
+    B1 that lost its lo plane multiplies by) must miss that limit; ms per
+    iteration (the 10/60 slope) beside one multiply
     by the kernels and by the old plain route (``spmm_windowed_xla``,
-    which densifies the compact plane)."""
+    which densifies the compact plane). Returns B1's and B2's numbers,
+    the iterations and the counted run's launches."""
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
@@ -2441,7 +2446,7 @@ def pagerank_phase(dev, power, scale=1.0):
         spmm_windowed_core, spmm_windowed_xla,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
-        import PAGERANK_RTOL, pagerank_host_f64
+        import PAGERANK_RTOL, hi_only, pagerank_host_f64
 
     t0 = time.perf_counter()
     g = cop20k_like(seed=4, scale=scale)
@@ -2494,6 +2499,21 @@ def pagerank_phase(dev, power, scale=1.0):
     check(rel <= PAGERANK_RTOL, f"PageRank ranks off the f64 iteration by "
           f"{rel}")
     check(abs(total - 1.0) <= 1e-4, f"PageRank ranks sum to {total}")
+    ctl = WindowedPairs.from_csr(
+        hi_only(norm), block_rows=op.block_rows, chunk_cols=op.chunk_cols,
+        pairs_per_step=op.pairs_per_step, k_nominal=1).to(dev)
+    check(windowed_route(ctl) == route, f"the hi-only control routes to "
+          f"{windowed_route(ctl)}, not {route}")
+    r_ctl, _ = pagerank(lambda v: spmm_any(ctl, v), n, tol=0.0,
+                        max_iter=it, dtype=torch.float32, device=dev)
+    rel_ctl = float(np.max(np.abs(r_ctl.cpu().double().numpy() - ref)
+                           / ref))
+    del ctl
+    print(f"PageRank control, the matrix rounded to bf16 (no lo plane): "
+          f"ranks vs host f64 max relative error {rel_ctl}; the limit "
+          f"{PAGERANK_RTOL} lies between {rel} and it")
+    check(rel_ctl > PAGERANK_RTOL, f"the PageRank limit {PAGERANK_RTOL} "
+          f"passes the hi-only control ({rel_ctl})")
     t_short = cuda_ms(lambda: run(0.0, PR_SHORT), 3, warmup=1)
     t_long = cuda_ms(lambda: run(0.0, PR_LONG), 3, warmup=1)
     per_iter = (t_long - t_short) / (PR_LONG - PR_SHORT)
@@ -2508,9 +2528,10 @@ def pagerank_phase(dev, power, scale=1.0):
         "iterations": it, "ms_per_iteration": per_iter,
         "ms_fixed_short": t_short, "ms_fixed_long": t_long,
         "multiply_kernels_ms": kernel_ms, "multiply_plain_route_ms": plain_ms,
-        "max_rel_err_vs_f64": rel, "rank_sum": total, "launches": counts,
-        "max_memory_allocated": peak, "power": power}))
-    return numbers, it
+        "max_rel_err_vs_f64": rel, "rtol": PAGERANK_RTOL,
+        "hi_only_control_max_rel_err": rel_ctl, "rank_sum": total,
+        "launches": counts, "max_memory_allocated": peak, "power": power}))
+    return numbers, it, counts
 
 
 def narrow_grid_phase(dev, power, csr) -> dict:
@@ -2951,7 +2972,7 @@ def main() -> int:
     # 14. narrow k on the kernels: PageRank at k = 1, the k in {1, 3, 6,
     # 9} grid, the models and results scripts, spmm() and the examples
     t_phase = time.perf_counter()
-    narrow, pr_iters = pagerank_phase(dev, power)
+    narrow, pr_iters, pr_counts = pagerank_phase(dev, power)
     csr = cop20k_like(dtype=np.float32)
     b3_b4, narrow_launches = narrow_grid_phase(dev, power, csr)
     narrow.update(b3_b4)
@@ -2981,8 +3002,9 @@ def main() -> int:
         if name in narrow_launches:
             e["narrow_k_launches"] = narrow_launches[name]
         if name in ("B1", "B2"):
-            e["pagerank_launches"] = {"iterations": pr_iters,
-                                      "per_iteration": 1}
+            e["pagerank_launches"] = {
+                "iterations": pr_iters,
+                "per_iteration": pr_counts[name] / pr_iters}
         script_counts = {run: counts[name]
                          for run, counts in script_launches.items()
                          if counts.get(name)}

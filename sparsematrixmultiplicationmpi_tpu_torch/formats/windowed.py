@@ -145,19 +145,14 @@ def _split_planes(tiles: np.ndarray) -> Optional[np.ndarray]:
         return None
     tiles = np.ascontiguousarray(tiles)
     t = torch.from_numpy(tiles)
-    hi = t.to(torch.bfloat16).view(torch.int16)
-    if bool(torch.isfinite(t).all()):
-        lo = (t - hi.view(torch.bfloat16).to(torch.float32)).to(
-            torch.bfloat16).view(torch.int16)
-    else:
-        # Only a non-finite value gives a NaN half (a finite one that
-        # rounds to ±Inf leaves a finite or infinite rest). The rest is
-        # numpy's subtraction from the rewritten hi, as the JAX split's.
-        hi = _nan_bits(hi, t)
-        hi32 = (hi.to(torch.int32) << 16).view(torch.float32)
-        with np.errstate(invalid="ignore"):
-            rest = torch.from_numpy(tiles - hi32.numpy())
-        lo = _nan_bits(rest.to(torch.bfloat16).view(torch.int16), rest)
+    hi = _nan_bits(t.to(torch.bfloat16).view(torch.int16), t)
+    # The rest is numpy's subtraction from the rewritten hi, as the JAX
+    # split's: torch's propagates another NaN operand (a non-finite
+    # value's rest), and the two agree bit for bit on finite values.
+    hi32 = (hi.to(torch.int32) << 16).view(torch.float32)
+    with np.errstate(invalid="ignore"):
+        rest = torch.from_numpy(tiles - hi32.numpy())
+    lo = _nan_bits(rest.to(torch.bfloat16).view(torch.int16), rest)
     return torch.cat([hi, lo], dim=-1).numpy().view(np.uint16)
 
 

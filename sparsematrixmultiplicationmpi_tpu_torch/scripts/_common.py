@@ -15,10 +15,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 RESULTS_DIR = os.path.join(ROOT, "results", "h100")
 
 
-def add_device_args(parser, *, device_default: str = "cuda") -> None:
-    parser.add_argument("--device", default=device_default,
-                        choices=["cuda", "cpu"],
-                        help=f"where to run (default: {device_default})")
+def add_device_args(parser) -> None:
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where to run (default: cuda)")
     parser.add_argument("--out-dir", default=RESULTS_DIR,
                         help="where the results go (default: "
                              "results/h100/ of the checkout)")

@@ -25,7 +25,7 @@ checks and launch counts; exits 1 when a check fails: a non-finite or
 non-falling GCN loss, a CG solution whose true residual exceeds 1e-4 or
 that took more than ``max_iter`` iterations, PageRank ranks off a host
 float64 power iteration of the same length by more than the f32 tier
-(5e-3 of each rank) or not summing to 1, and on the card a B5 count other
+(1e-4 of each rank) or not summing to 1, and on the card a B5 count other
 than the CG iterations + 1 or a B1 / B2 count other than one each a
 PageRank iteration. ``--scale`` shrinks the three problems for a quick
 run.
@@ -56,10 +56,12 @@ from ..utils.timing import time_fn, time_region
 from . import _common
 
 __all__ = ["main", "gcn_bench", "cg_bench", "pagerank_bench",
-           "pagerank_host_f64"]
+           "pagerank_host_f64", "hi_only"]
 
-#: PageRank's f32 tier against the host f64 iteration, per rank.
-PAGERANK_RTOL = 5e-3
+#: PageRank's f32 tier against the host f64 iteration, per rank: above
+#: the split product's error and below that of the same iteration on the
+#: ``hi_only`` matrix, which the chip smoke test holds it between.
+PAGERANK_RTOL = 1e-4
 #: CG's true-residual gate, relative to ``||b||``, in f64.
 CG_RESIDUAL_TOL = 1e-4
 
@@ -133,6 +135,14 @@ def cg_bench(dev: torch.device, m: int = 121_192):
         checks["cg_b5_per_iteration"] = launches["B5"] == iters + 1
     print(result, flush=True)
     return result, checks, launches
+
+
+def hi_only(csr):
+    """``csr`` with every value rounded to bf16: the matrix that a split
+    product which lost its ``lo`` plane multiplies by."""
+    vals = torch.from_numpy(np.asarray(csr.values, np.float32))
+    return dataclasses.replace(
+        csr, values=vals.to(torch.bfloat16).to(torch.float32).numpy())
 
 
 def pagerank_host_f64(csr, iterations: int, damping: float = 0.85):

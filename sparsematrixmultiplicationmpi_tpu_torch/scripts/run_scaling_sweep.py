@@ -1,16 +1,15 @@
-"""Every strategy at several ranks on gloo, with each strategy's
-collectives counted (port of the JAX package's
-``scripts/run_scaling_sweep.py``).
+"""Every strategy at several ranks, with each strategy's collectives
+counted (port of the JAX package's ``scripts/run_scaling_sweep.py``).
 
     python -m sparsematrixmultiplicationmpi_tpu_torch.scripts.run_scaling_sweep \
-        [--device cpu|cuda] [--out-dir DIR] [--ps P ...] [--ks K ...] \
+        [--device cuda|cpu] [--out-dir DIR] [--ps P ...] [--ks K ...] \
         [--scale S]
 
 The JAX script ran its strategies on an 8-device CPU mesh and parsed the
 compiled HLO for collectives. Here each rank count ``p`` is one group of
-``p`` spawned ranks (``parallel/launch.py::run_ranks``; gloo on the CPU,
-the default, and NCCL with ``--device cuda`` for ``p`` up to the card
-count), in which every rank runs every job:
+``p`` spawned ranks (``parallel/launch.py::run_ranks``): NCCL ranks, one
+card each, by default, and gloo ranks on the host CPU with ``--device
+cpu``. Every rank runs every job:
 
 * the row, column, nnz, banded_row, windowed_row and auto strategies on
   the JAX script's three fixtures (a 3-D FEM mesh, a band, a power law)
@@ -21,14 +20,16 @@ count), in which every rank runs every job:
   giving each collective's kind, count and bytes on rank 0 (the count
   the HLO parse gave).
 
-``p`` runs over 1, 2, 4, and 8 where the host has 8 cores; each rank
-takes its share of the host's threads. Writes ``<tag>_mesh_scaling.csv``
-/ ``.json`` (``tag`` = ``cpu`` on the CPU; the JSON keys of the JAX
-package's ``results/cpu_mesh_scaling.json``), ``collective_bytes.json``
-and, with matplotlib, the scaling figures. On the CPU the times are host
-timings of gloo ranks: they show the collectives' structure and the
-results' correctness, not the card's speed. Exits 1 when a job failed
-or disagreed with the oracle.
+``p`` runs over 1, 2, 4 and 8: on the card those up to the card count
+(a ``--ps`` above it is refused), on the CPU those below 8, and 8 where
+the host has 8 cores, each rank taking its share of the host's threads.
+Writes ``<tag>_mesh_scaling.csv`` / ``.json`` (``tag`` = ``h100`` on the
+card, ``cpu`` on the CPU; the JSON keys of the JAX package's
+``results/cpu_mesh_scaling.json``), ``collective_bytes.json`` and, with
+matplotlib, the scaling figures. On the CPU the times are host timings
+of gloo ranks: they show the collectives' structure and the results'
+correctness, not the card's speed. Exits 1 when a job failed or
+disagreed with the oracle.
 """
 
 from __future__ import annotations
@@ -131,10 +132,10 @@ def _rank_jobs(mesh, matrices, ks, threads):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="run_scaling_sweep", description=__doc__.split("\n\n")[0])
-    _common.add_device_args(ap, device_default="cpu")
-    cores = os.cpu_count() or 1
+    _common.add_device_args(ap)
     ap.add_argument("--ps", type=int, nargs="+",
-                    default=[1, 2, 4] + ([8] if cores >= 8 else []))
+                    help="rank counts (default: 1, 2, 4, 8 as the cards "
+                         "or the host's cores allow)")
     ap.add_argument("--ks", type=int, nargs="+", default=list(KS))
     ap.add_argument("--scale", type=float, default=1.0,
                     help="shrink the fixtures (default: full size)")
@@ -142,10 +143,18 @@ def main(argv=None) -> int:
     err = _common.device_error(args.device)
     if err:
         return _common.refuse("run_scaling_sweep", err)
-    ps = args.ps
+    cores = os.cpu_count() or 1
     if args.device == "cuda":
-        ps = [p for p in ps if p <= torch.cuda.device_count()]
-        print(f"rank counts on {torch.cuda.device_count()} card(s): {ps}")
+        cards = torch.cuda.device_count()
+        ps = args.ps or [p for p in (1, 2, 4, 8) if p <= cards]
+        if max(ps) > cards:
+            return _common.refuse(
+                "run_scaling_sweep", f"--ps {max(ps)} needs {max(ps)} CUDA "
+                f"devices, and this host has {cards}")
+    else:
+        ps = args.ps or [1, 2, 4] + ([8] if cores >= 8 else [])
+    print(f"rank counts on {_common.hardware(args.device)}: {ps}",
+          flush=True)
     matrices = fixtures(args.scale)
     os.makedirs(args.out_dir, exist_ok=True)
     tag = _common.tag(args.device)

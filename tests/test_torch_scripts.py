@@ -87,6 +87,36 @@ def test_pagerank_host_reference_is_a_power_iteration():
     np.testing.assert_allclose(r.numpy(), ref, rtol=1e-12)
 
 
+def test_pagerank_limit_fails_the_hi_only_matrix():
+    """``PAGERANK_RTOL`` passes the port's f32 PageRank through the
+    windowed route and fails the same iteration on the matrix rounded to
+    bf16, which a split product without its ``lo`` plane multiplies by."""
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        cop20k_like,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.models import (
+        normalize_columns, pagerank,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm_any,
+    )
+
+    g = cop20k_like(scale=0.05, seed=4)
+    g = type(g)(values=np.abs(g.values), col_indices=g.col_indices,
+                row_ptr=g.row_ptr, shape=g.shape)
+    norm = normalize_columns(g).astype(np.float32)
+    op = auto_format(norm, k_nominal=1).to("cpu")
+    r, it = pagerank(lambda v: spmm_any(op, v), norm.shape[0], tol=0.0,
+                     max_iter=10, dtype=torch.float32, device="cpu")
+    ref = run_models_bench.pagerank_host_f64(norm, it)
+    ctl = run_models_bench.pagerank_host_f64(
+        run_models_bench.hi_only(norm), it)
+    assert type(op).__name__ == "WindowedPairs"
+    assert np.max(np.abs(r.double().numpy() - ref) / ref) \
+        <= run_models_bench.PAGERANK_RTOL
+    assert np.max(np.abs(ctl - ref) / ref) > run_models_bench.PAGERANK_RTOL
+
+
 SWEEP = ["--device", "cpu", "--matrices", "cage4_like", "fem_banded_100k",
          "--ks", "1", "6", "--strategies", "auto", "row", "--scale", "0.01"]
 
@@ -259,7 +289,7 @@ def test_weak_scaling_projection_from_the_counted_bytes(scaled, tmp_path,
 @pytest.mark.parametrize("main,argv", [
     (run_models_bench.main, []),
     (run_results_sweep.main, []),
-    (run_scaling_sweep.main, ["--device", "cuda"]),
+    (run_scaling_sweep.main, []),
     (launch_multihost.main, ["--coordinator", "127.0.0.1:1",
                              "--num-processes", "1", "--", "info"]),
 ], ids=["models", "results", "scaling", "launcher"])
@@ -269,6 +299,16 @@ def test_a_card_run_without_cuda_exits_1(main, argv, monkeypatch, capsys,
     assert main(argv + ["--out-dir", str(tmp_path)]
                 if main is not launch_multihost.main else argv) == 1
     assert "needs a CUDA device" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+
+
+def test_scaling_sweep_refuses_more_ranks_than_cards(monkeypatch, capsys,
+                                                    tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert run_scaling_sweep.main(["--ps", "1", "2", "--out-dir",
+                                   str(tmp_path)]) == 1
+    assert "--ps 2 needs 2 CUDA devices" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
 
 
