@@ -23,8 +23,16 @@ next-state epilogue; dec). Phases:
    unfused sum; plus B1 on a block-spanning small operand), and
    their times over many launches after warm-up;
 4. main path: launch counts zeroed, a one-shot ``spmm_any`` and the
-   amortized ``run_benchmark(inner=20)``, both checked against the host
-   float64 oracle; the counts must show B2 and one B1 per body call;
+   amortized ``run_benchmark(inner=20)`` through ``Auto()``, which
+   prices the card's route with the H100 cost table (its route is
+   printed), both checked against the host float64 oracle; the counts
+   must show B2 and one B1 per body call;
+Phases 2-3 build the operand on the host with the reference's cost
+table, and phases 5-12 pass it to their builds (``cost_table=V5E``):
+they drive each kernel at the shape ``PERF.md`` records. Every multiply
+on the card routes by the card's dispatch gates
+(``formats/cost.py::dispatch_table``), whatever table built its operand;
+
 5. solver path: the JAX package's model-benchmark CG system
    (``spd_banded_system(121,192)``, f32, 8 right-hand sides) through
    ``Auto(k_nominal=8)`` -> ``BandedBlocks`` (r = 128, no spill, 947
@@ -47,10 +55,9 @@ next-state epilogue; dec). Phases:
    planes), B7 (one launch over every spill
    bucket, and each bucket alone) against the take route, all within
    ``1e-5 * cond + 1e-6``; then, with the counts zeroed, a one-shot
-   ``spmm_any`` with the spill through the take route, one with the
-   spill through B7 (``SPILL_DMA_GATHER``, one B7 launch), and the
-   amortized ``run_benchmark`` (encode, iterate = B2 + B3 + spill,
-   decode), each against the f64 oracle, and the path's peak device
+   ``spmm_any`` (the spill through B7, the card's dispatch, one B7
+   launch a call) and the amortized ``run_benchmark`` (encode, iterate =
+   B2 + B3 + B7 spill, decode), each against the f64 oracle, and the path's peak device
    memory. The same in bf16 (route R = C = 512, 1,098 pairs, a spill;
    the card copy holds the natural compact plane of ``tiles``): B4
    (bf16, on that plane) against its plain version, one-shot and
@@ -67,7 +74,7 @@ next-state epilogue; dec). Phases:
    ``resplit_slabs``), against the f64 oracle; one B6 launch per call;
 8. GCN training on the model benchmark's graph (``gcn_task()``: 100,000
    nodes, 598,723 nnz, f = 64, h = 128, c = 16, f32; ``auto_format(
-   k_nominal=128)`` -> ``BucketedELL``, take-route gathers) through the
+   k_nominal=128)`` -> ``BucketedELL``, one B7 launch an SpMM) through the
    custom-gradient SpMM (``make_symmetric_spmm``): the first step's loss
    and four gradients against the same port code in float64 on the CPU
    (SpMM through a CPU COO operand; loss within 1e-4 relative, each
@@ -84,12 +91,13 @@ next-state epilogue; dec). Phases:
    for bit, and B1 at this R and k8 = 128 and 16 against its plain
    version on B2's plain slabs and the host's dense plane (``1e-5 * cond
    + 1e-6``); then the checks and times of
-   phase 8, with exactly 4 B1 and 4 B2 launches a training step (the
-   forward and backward SpMMs at k = 128 and 16) and no other kernel;
+   phase 8, with exactly 4 B1, 4 B2 and 4 B7 (the spill) launches a
+   training step (the forward and backward SpMMs at k = 128 and 16) and
+   no other kernel;
 10. the hub route: ``auto_format(dc1_like(), allow_hub=True)`` at k = 32,
    f32, must give ``HubExtracted`` with the JAX package's pick on that
-   matrix (4 hubs over a ``BucketedELL`` remainder, take-route gathers:
-   no hand-written kernel); a one-shot ``spmm_any`` on the card
+   matrix (4 hubs over a ``BucketedELL`` remainder, gathered through
+   B7 on the card); a one-shot ``spmm_any`` on the card
    against the f64 oracle in the f32 tier, timed beside
    ``torch.sparse.mm`` on the whole matrix;
 11. the strategies on a one-rank NCCL group (``initialize_distributed``
@@ -149,7 +157,23 @@ next-state epilogue; dec). Phases:
    (all checks passed), ``scripts.run_results_sweep`` cut to cop20k at
    k = 1 and 32 (auto, windowed_row and the bf16 row: all correct on
    the card) and resumed with no job run again, ``spmm(csr, v)``, and
-   the three ``examples/torch_0*`` scripts with ``--device cuda``.
+   the three ``examples/torch_0*`` scripts with ``--device cuda``; each
+   model's printed route launching its format's kernels, CG through its
+   pick within 1.25x of CG through the band (B5) in the same run,
+   ``spmm`` one launch of each kernel of its route (alone with
+   ``--phase 14``);
+15. routing on the card (``routing_phase``; alone with ``--phase 15``):
+   for each matrix of the results sweep's ``MAIN`` family at k = 1 and
+   32 (the gather calibration's own matrices), then matrices held out
+   of every calibration (the models benchmark's CG system at k = 8, the
+   six rungs of ``exp_auto_threshold``'s ladder at k = 32), every class
+   the search weighs under the card's cost table
+   (``ops/auto.py::route_candidates``: bucketed ELL, COO, the best
+   ``WindowedPairs``, ``BandedBlocks`` where one builds), its ``Auto``
+   chain checked against the f64 oracle and one chain body timed; each
+   class's H100 estimate beside its time, and the pick (the cheapest
+   estimate, ``auto_format(csr, device=cuda)``'s) within 1.25x of the
+   fastest.
 
 Beside each kernel the phases time its library yardstick (``library_ms``:
 ``torch.sparse.mm`` on a CSR of the entries the kernel multiplies, built
@@ -163,7 +187,7 @@ dense tiles the kernels read before.
 
 Prints the card's name and power limit, one JSON line with the main
 path's result, one with the solver path's, one for each of phases 6 to
-14, each phase's wall seconds, one with the kernels (B1 and B2 also
+15, each phase's wall seconds, one with the kernels (B1 and B2 also
 with their launches per mesh GCN step, B1 with its R = 256, k8 = 128
 check; B1 to B4 with their launches a distributed multiply, B1 and B3
 with their per-rank numbers at p = 4; B1, B2 and B5 with their
@@ -515,6 +539,8 @@ def spsolve_f64(csr, b):
 def solver_phase(dev, power):
     """Phase 5: the CG solve of the JAX package's model benchmark on the
     port's band route. Returns the B5 entry of the kernels line."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
@@ -549,7 +575,7 @@ def solver_phase(dev, power):
     t0 = time.perf_counter()
     spd = spd_banded_system(M_SPD, seed=2)
     t1 = time.perf_counter()
-    op = Auto(k_nominal=K_CG).prepare(spd, dev)
+    op = Auto(k_nominal=K_CG, cost_table=V5E).prepare(spd, dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     route = dict(type=type(op).__name__,
@@ -671,7 +697,8 @@ def solver_phase(dev, power):
           f"B5 {ms['ms']} ms = {ms['ms'] / ms_per_iter:.3f} of it; one "
           f"convergence test (.item() round trip, empty queue) {sync_ms} ms")
     del op
-    rec = run_benchmark(spd, K_CG, Auto(k_nominal=K_CG), dev,
+    rec = run_benchmark(spd, K_CG, Auto(k_nominal=K_CG, cost_table=V5E),
+                        dev,
                         matrix_name="spd_banded_121k", warmup=2, iters=5,
                         oracle=oracle, check=True, dtype=np.float32,
                         amortized=True, inner=20)
@@ -696,11 +723,22 @@ def solver_phase(dev, power):
 
 def counted_auto(**format_kwargs):
     """An ``Auto(**format_kwargs)`` whose chain bodies are counted in its
-    ``body_calls``."""
+    ``body_calls``, and which keeps the route of its last prepared operand
+    in ``route``."""
     from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
 
     class CountedAuto(Auto):
         body_calls = 0
+        route = None
+
+        def prepare(self, csr, mesh):
+            op = super().prepare(csr, mesh)
+            self.route = {"type": type(op).__name__}
+            if hasattr(op, "pairs_per_step"):
+                self.route.update(R=op.block_rows, C=op.chunk_cols,
+                                  U=op.pairs_per_step, P=op.n_pairs,
+                                  spill=op.spill is not None)
+            return op
 
         def chain_parts(self, operand, mesh=None, **kwargs):
             enc, body, dec = super().chain_parts(operand, mesh, **kwargs)
@@ -962,8 +1000,10 @@ def wide_chunk_phase(dev, csr) -> None:
 
 def two_pair_phase(dev, csr, power):
     """Phase 6: the U=2 windowed path on the cop20k stand-in, f32 (B2 +
-    B3, spill by take or by B7) and bf16 (B2 + B4). Returns the B3, B4
+    B3, spill by B7, the take route held against it) and bf16 (B2 + B4). Returns the B3, B4
     and B7 entries of the kernels line."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
@@ -974,7 +1014,7 @@ def two_pair_phase(dev, csr, power):
         generate_fat_vector,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops import (
-        cuda_gather as cg, cuda_windowed as cw, ell as ell_ops,
+        cuda_gather as cg, cuda_windowed as cw,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
 
@@ -1045,39 +1085,35 @@ def two_pair_phase(dev, csr, power):
     torch.cuda.reset_peak_memory_stats()
     cw.reset_launch_counts()
     cg.reset_launch_counts()
-    one_take = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
-    ell_ops.SPILL_DMA_GATHER = True
-    try:
-        one_dma = matches_oracle(spmm_any(wp, v), oracle, cond,
-                                 torch.float32)
-    finally:
-        ell_ops.SPILL_DMA_GATHER = False
+    # The card's dispatch gathers the spill through B7 (the take route is
+    # held against it bucket by bucket in spill_gather_phase).
+    one_dma = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
     del wp, v_p
-    strat = counted_auto(pairs_per_step=2)
+    strat = counted_auto(pairs_per_step=2, cost_table=V5E)
     rec = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
                         warmup=2, iters=5, oracle=oracle, check=True,
                         dtype=np.float32, amortized=True, inner=20)
     torch.cuda.synchronize()
     counts = {**cw.launch_counts(), **cg.launch_counts()}
     plane_f32["peak_device_memory"] = torch.cuda.max_memory_allocated()
-    print(f"two-pair f32 one-shot spmm_any: take route correct={one_take}, "
-          f"B7 route correct={one_dma}; amortized {rec.execution_time * 1e3}"
+    print(f"two-pair f32 one-shot spmm_any (spill by B7): correct={one_dma};"
+          f" amortized {rec.execution_time * 1e3}"
           f" ms per multiply, {rec.gnnz_per_s} Gnnz/s, correct={rec.correct}"
           f"; launch counts {counts}; chain body calls {strat.body_calls}")
-    check(one_take and one_dma, "two-pair one-shot disagrees with the oracle")
+    check(one_dma, "two-pair one-shot disagrees with the oracle")
     check(rec.correct is True, "two-pair amortized path disagrees with oracle")
     check(rec.execution_time == rec.execution_time,
           "two-pair chained iterate time did not resolve")
-    calls = 2 + strat.body_calls
-    # One B7 launch for the whole spill of the one B7-routed call.
+    calls = 1 + strat.body_calls
+    # One B7 launch for the whole spill of each call.
     check(strat.body_calls > 0 and counts["B3"] == calls
-          and counts["B2"] == calls and counts["B7"] == 1
+          and counts["B2"] == calls and counts["B7"] == calls
           and counts["B1"] == counts["B4"] == counts["B6"] == 0,
-          f"two-pair launch counts {counts} != {calls} B2/B3 (2 one-shot + "
-          f"{strat.body_calls} bodies) and 1 B7")
+          f"two-pair launch counts {counts} != {calls} B2/B3/B7 (1 one-shot"
+          f" + {strat.body_calls} bodies)")
     f32 = {"gnnz_per_s": rec.gnnz_per_s, "execution_time_s":
            rec.execution_time, "correct": rec.correct,
-           "one_shot_take_correct": one_take, "one_shot_b7_correct": one_dma,
+           "one_shot_b7_correct": one_dma,
            "max_error": rec.max_error, "launches": counts}
     b3_launches, b7_launches = counts["B3"], counts["B7"]
 
@@ -1126,7 +1162,7 @@ def two_pair_phase(dev, csr, power):
     one_bf = matches_oracle(spmm_any(wpb, vb), oracle_bf, cond_bf,
                             torch.bfloat16)
     del wpb
-    strat = counted_auto(pairs_per_step=2)
+    strat = counted_auto(pairs_per_step=2, cost_table=V5E)
     rec_bf = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
                            warmup=2, iters=5, oracle=oracle_bf, check=True,
                            dtype=torch.bfloat16, amortized=True, inner=20)
@@ -1180,6 +1216,8 @@ def phased_phase(dev, csr, power):
     """Phase 7: the phased resident layout on the cop20k stand-in, chain
     body B6 + ``resplit_slabs``. Returns the B6 entry of the kernels
     line."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
@@ -1198,7 +1236,7 @@ def phased_phase(dev, csr, power):
     from sparsematrixmultiplicationmpi_tpu_torch.parallel import Auto
 
     t0 = time.perf_counter()
-    wp = Auto(phase_layout=True).prepare(csr, dev)
+    wp = Auto(phase_layout=True, cost_table=V5E).prepare(csr, dev)
     torch.cuda.synchronize()
     route = windowed_route(wp)
     ct = wp.tiles_t
@@ -1261,7 +1299,7 @@ def phased_phase(dev, csr, power):
     cw.reset_launch_counts()
     one = matches_oracle(spmm_any(wp, v), oracle, cond, torch.float32)
     del wp
-    strat = counted_auto(phase_layout=True)
+    strat = counted_auto(phase_layout=True, cost_table=V5E)
     rec = run_benchmark(csr, K, strat, dev, matrix_name="cop20k_like",
                         warmup=2, iters=5, oracle=oracle, check=True,
                         dtype=np.float32, amortized=True, inner=20)
@@ -1507,8 +1545,8 @@ def gat_phase(dev, a_hat, x_host) -> dict:
 
 def gcn_100k_phase(dev, power, n=100_000) -> None:
     """Phase 8: GCN training on the model benchmark's graph (100,000
-    nodes, ``k_nominal = 128`` -> ``BucketedELL``: take-route gathers, no
-    hand-written kernel), and one 4-head GAT on it."""
+    nodes, ``k_nominal = 128`` -> ``BucketedELL``: one B7 launch an SpMM,
+    the card's dispatch), and one 4-head GAT on it."""
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
@@ -1518,6 +1556,8 @@ def gcn_100k_phase(dev, power, n=100_000) -> None:
         BucketedELL,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
+        import route_kernels
 
     t0 = time.perf_counter()
     a_hat, x, labels, mask = gcn_task(n=n)
@@ -1532,7 +1572,8 @@ def gcn_100k_phase(dev, power, n=100_000) -> None:
     print(f"GCN 100k: graph {a_hat.shape[0]} nodes, {a_hat.nnz} nnz built "
           f"in {t1 - t0:.2f} s; auto_format {t2 - t1:.2f} s -> BucketedELL "
           f"buckets {buckets}")
-    res = gcn_train_phase("GCN 100k", dev, a_hat, op, (x, labels, mask))
+    res = gcn_train_phase("GCN 100k", dev, a_hat, op, (x, labels, mask),
+                          counted_kernels=route_kernels(op, 128))
     res.update(gat_phase(dev, a_hat, x))
     print(json.dumps({"path": "gcn_train_100k_nodes", "nodes": a_hat.shape[0],
                       "nnz": a_hat.nnz, "route": "BucketedELL",
@@ -1603,6 +1644,8 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
         to_tensor,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
+        import route_kernels
 
     t0 = time.perf_counter()
     a_hat, x, labels, mask = mesh_gcn_task(f=GCN_F, c=GCN_C, scale=scale)
@@ -1632,7 +1675,7 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
     b1 = {k: b1_wide_check(wp, dense, k) for k in (128, 16)}
     del dense
     res = gcn_train_phase("GCN mesh", dev, a_hat, wp, (x, labels, mask),
-                          counted_kernels=("B1", "B2"))
+                          counted_kernels=route_kernels(wp, 128))
     print(json.dumps({"path": "gcn_train_cop20k_mesh",
                       "nodes": a_hat.shape[0], "nnz": a_hat.nnz,
                       "route": route, **res,
@@ -1646,7 +1689,7 @@ def hub_phase(dev, power, scale=1.0) -> None:
     """Phase 10: the hub route. ``auto_format(dc1_like(), allow_hub=True)``
     at k = 32, f32, must give ``HubExtracted`` with ``HUB_DC1`` (the JAX
     package's pick on the same matrix: 4 hubs over a ``BucketedELL``
-    remainder, whose SpMM is the take route, no hand-written kernel); a
+    remainder, gathered through B7 on the card); a
     one-shot ``spmm_any`` on the card against the f64 oracle in the f32
     tier, timed beside the library call on the whole matrix."""
     import torch
@@ -1801,6 +1844,8 @@ def strategies_phase(dev, power, csr) -> dict:
     1 B2 + 1 B3 or B4 at U = 2) a multiply; ``comm_comp_split`` of
     ``RowWise`` and ``WindowedRowWise``; ``dryrun_multichip(1)``. Returns
     each windowed kernel's launches a distributed multiply."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+
     import torch
     import torch.distributed as dist
 
@@ -1836,9 +1881,9 @@ def strategies_phase(dev, power, csr) -> dict:
         v = torch.from_numpy(v_host).to(dev)
         oracle, cond = oracle_parts(csr, v_host)
         for label, strat, where in (
-                ("Auto (one device)", Auto(), mesh),
+                ("Auto (one device)", Auto(cost_table=V5E), mesh),
                 ("RowWise", RowWise(), mesh),
-                ("ColumnWise", ColumnWise(), mesh),
+                ("ColumnWise", ColumnWise(cost_table=V5E), mesh),
                 ("NonZeroElement psum", NonZeroElement(), mesh),
                 ("NonZeroElement scatter", NonZeroElement("scatter"), mesh),
                 ("Library", Library(), mesh),
@@ -1855,7 +1900,7 @@ def strategies_phase(dev, power, csr) -> dict:
         for U, dt in ((16, "float32"), (2, "float32"), (2, "bfloat16")):
             label = f"WindowedRowWise U={U} {dt}"
             bf = dt == "bfloat16"
-            strat = WindowedRowWise(pairs_per_step=U)
+            strat = WindowedRowWise(pairs_per_step=U, cost_table=V5E)
             op, r = strategy_case(
                 label, strat, mesh, csr_bf if bf else csr,
                 v.to(torch.bfloat16) if bf else v,
@@ -1881,7 +1926,7 @@ def strategies_phase(dev, power, csr) -> dict:
             res[label] = r
             del op
         t0 = time.perf_counter()
-        pick = type(Auto()._mesh_route(csr)).__name__
+        pick = type(Auto(cost_table=V5E)._mesh_route(csr)).__name__
         res["auto_mesh_route"] = {"pick": pick,
                                   "seconds": time.perf_counter() - t0}
         print(f"Auto's pick on a mesh of several ranks: {pick}")
@@ -1890,7 +1935,8 @@ def strategies_phase(dev, power, csr) -> dict:
             np.float32)
         o_spd, c_spd = oracle_parts(spd, vb_host)
         op, r = strategy_case("BandedRowWise", BandedRowWise(
-            k_nominal=K_CG), mesh, spd, torch.from_numpy(vb_host).to(dev),
+            k_nominal=K_CG, cost_table=V5E), mesh, spd,
+            torch.from_numpy(vb_host).to(dev),
             o_spd, c_spd, torch.float32)
         r["route"] = dict(r=op.block_rows, band=list(op.band.shape),
                           spill=op.spill_cols is not None)
@@ -1929,6 +1975,8 @@ def rank_kernels_phase(dev, power, csr, p=4) -> dict:
     dense plane and timed beside its bound, and its rows (spill and
     row-owned tail included); the four row blocks, decoded, against the
     f64 oracle. Returns each kernel's per-rank numbers."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+
     import torch
 
     from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
@@ -1955,7 +2003,8 @@ def rank_kernels_phase(dev, power, csr, p=4) -> dict:
     for U in (16, 2):
         kernel = RANK_KERNEL[(U, "float32")]
         t0 = time.perf_counter()
-        shards = WindowedRowWise(pairs_per_step=U).partition(csr, p)
+        shards = WindowedRowWise(pairs_per_step=U,
+                                 cost_table=V5E).partition(csr, p)
         part_s = time.perf_counter() - t0
         h = shards[0]
         route = dict(R=h.block_rows, C=h.chunk_cols, mode=h.input_mode,
@@ -2539,11 +2588,15 @@ def narrow_grid_phase(dev, power, csr) -> dict:
     through the U = 16, U = 2 f32 and U = 2 bf16 operands (and, at
     U = 16, the transposed chain), each against the f64 oracle in its
     tier with the counts showing only kernels ran: B2 + B1, B2 + B3,
-    B2 + B4. B3 and B4 against their plain versions at k = 1 padded to
+    B2 + B4, and one B7 for a spill where the card's cost table gathers
+    spills through it. B3 and B4 against their plain versions at k = 1 padded to
     8; each route's k = 1 multiply timed beside the old plain route.
     Returns B3's and B4's numbers and each kernel's launches."""
     import torch
 
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import (
+        dispatch_table,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
         cast, to_tensor,
     )
@@ -2617,6 +2670,10 @@ def narrow_grid_phase(dev, power, csr) -> dict:
               f"{plain_ms} ms")
         routes[label].update(k1_kernels_ms=route_ms, k1_plain_route_ms=plain_ms)
         names = ("B2", kernel)
+        # A spill gathers through one B7 launch where the card's table
+        # routes spills to it.
+        if op.spill is not None and dispatch_table(dev).spill_dma_gather:
+            names += ("B7",)
         for k in NARROW_KS:
             v_host = generate_fat_vector(mat.shape[1], k, seed=k).astype(
                 np.float32)
@@ -2636,7 +2693,7 @@ def narrow_grid_phase(dev, power, csr) -> dict:
                   f"narrow k, {label}, k = {k}: spmm_any disagrees with the "
                   "f64 oracle")
             check(counts == want, f"narrow k, {label}, k = {k}: launches "
-                  f"{counts} != one B2 and one {kernel}")
+                  f"{counts} != one each of {names}")
             for name in names:
                 launches[name] = launches.get(name, 0) + counts[name]
             if kernel == "B1" and op.supports_transposed_chain:
@@ -2663,6 +2720,72 @@ def narrow_grid_phase(dev, power, csr) -> dict:
     return out, launches
 
 
+#: Phase 14: the kernels each format's route must launch on the card
+#: (a U = 16 windowed operand's; a format missing here, COO's, launches
+#: none and fails the check).
+ROUTE_KERNELS = {"BandedBlocks": ("B5",), "BucketedELL": ("B7",),
+                 "WindowedPairs": ("B2", "B1")}
+#: (launch-count key, route key) of each model of run_models_bench.
+MODEL_RUNS = (("gcn_step", "gcn_route"), ("cg_solve", "cg_route"),
+              ("pagerank", "pagerank_route"))
+#: How far CG's ms an iteration through the models benchmark's pick may
+#: be above the same solve's through the band (B5) in the same run (the
+#: routing slack: two band operands read 0.895 apart in one run).
+CG_SLACK = 1.25
+
+
+def cg_against_the_band(dev, m=121_192) -> dict:
+    """CG on the models benchmark's system (8 right-hand sides) through
+    its pick (``auto_format(device=cuda, one_shot=True, k_nominal=8)``)
+    and through the band the reference's table picks (B5, the route the
+    card took before it had its own table): ms an iteration as the slope of fixed 4- and 16-iteration
+    ``tol = 0`` solves, the four timed in turns, best of 7. The pick's
+    must be within ``CG_SLACK`` of the band's."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+        spd_banded_system,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import (
+        BandedBlocks,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import V5E
+    from sparsematrixmultiplicationmpi_tpu_torch.models import (
+        conjugate_gradient,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm_any,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts import _probe
+
+    spd = spd_banded_system(m)
+    ops = {"pick": auto_format(spd, device=dev, one_shot=True,
+                               k_nominal=8).to(dev),
+           "band": auto_format(spd, cost_table=V5E).to(dev)}
+    check(isinstance(ops["band"], BandedBlocks),
+          f"the reference's table picks {type(ops['band']).__name__} for "
+          "the CG system, not its band")
+    b = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(m, 8)).astype(np.float32)).to(dev)
+
+    def solve(op, n):
+        return lambda: conjugate_gradient(lambda v: spmm_any(op, v), b,
+                                          tol=0.0, max_iter=n)
+
+    fns = [solve(op, n) for op in ops.values() for n in (4, 16)]
+    s = _probe.seconds_each(fns, dev, n=5, warmup=1, rounds=7)
+    ms = {name: (s[2 * i + 1] - s[2 * i]) / 12 * 1e3
+          for i, name in enumerate(ops)}
+    out = {"pick": type(ops["pick"]).__name__, "ms_per_iteration": ms,
+           "ratio": ms["pick"] / ms["band"]}
+    print(f"CG through its pick {out['pick']}: {ms['pick']} ms an iteration;"
+          f" through the band (B5): {ms['band']} ms; ratio {out['ratio']:.3f}")
+    check(out["ratio"] <= CG_SLACK,
+          f"CG through {out['pick']} is {out['ratio']:.3f}x its time through "
+          f"the band (slack {CG_SLACK})")
+    return out
+
+
 def scripts_phase(dev, power, scale=1.0) -> dict:
     """Phase 14c-e: ``scripts.run_models_bench.main`` (its checks must all
     pass); ``scripts.run_results_sweep.main`` cut to ``--matrices
@@ -2670,8 +2793,14 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
     temporary checkpoint (every row correct), then again, resuming with
     no row run anew; ``spmm(csr, v)`` on the cop20k stand-in (one B2, one
     B1, against the oracle); the three ``examples/torch_0*`` scripts'
-    ``main`` with ``--device cuda``, in this process. Returns the launches of each. ``scale`` < 1
-    shrinks every problem (a rehearsal off the card)."""
+    ``main`` with ``--device cuda``, in this process. Each model's
+    printed route must launch the kernels its format takes
+    (``ROUTE_KERNELS``), CG's ms an iteration through its pick within
+    ``CG_SLACK`` of its time through the band (``cg_against_the_band``);
+    and
+    ``spmm``'s one of each kernel of its route. Returns the launches of
+    each. ``scale`` < 1 shrinks every problem (a rehearsal off the
+    card)."""
     import tempfile
 
     import torch
@@ -2682,7 +2811,9 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
     from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
         cop20k_like, generate_fat_vector,
     )
-    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, spmm,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
         run_models_bench, run_results_sweep,
     )
@@ -2694,7 +2825,8 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
         check(rc == 0, f"run_models_bench exited {rc}")
         models = json.load(open(os.path.join(tmp, "models_h100.json")))
         # The script counts each model's launches itself (its checks hold
-        # B5 to the CG iterations + 1, B1 and B2 to one a PageRank step).
+        # them to one multiply's kernels a CG iteration, plus one, and a
+        # PageRank step).
         checked = json.loads(out.strip().splitlines()[-1])
         res["models"] = {**models, **checked}
         check(models["hardware"] == power, "models_h100.json names "
@@ -2702,9 +2834,20 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
         launches["models"] = {
             name: sum(c[name] for c in checked["launches"].values())
             for name in checked["launches"]["cg_solve"]}
-        check(launches["models"]["B5"] > 0 and launches["models"]["B1"] > 0,
-              f"the models benchmark ran B5 / B1 no time: "
-              f"{launches['models']}")
+        # Each model's route launches the kernels its format takes on the
+        # card, every one of them (the script holds their counts to one
+        # multiply's a call).
+        for model, key in MODEL_RUNS:
+            route = checked["checks"][key]
+            need = ROUTE_KERNELS.get(route["format"])
+            got = checked["launches"][model]
+            check(need is not None and set(need) <= set(route["kernels"])
+                  and all(got[name] > 0 for name in route["kernels"]),
+                  f"{model}: route {route} launched {got}")
+        print(f"models: CG route {checked['checks']['cg_route']}, "
+              f"{models['cg_solve_121k']['ms_per_iteration']} ms an "
+              "iteration")
+        res["cg_against_the_band"] = cg_against_the_band(dev)
 
         argv = ["--matrices", "cop20k_like", "--ks", "1", "32",
                 "--strategies", "auto", "windowed_row", "--out-dir", tmp,
@@ -2731,17 +2874,22 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
     csr = cop20k_like(dtype=np.float32, scale=scale)
     v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
     oracle, cond = oracle_parts(csr, v_host)
+    pick = auto_format(csr, device=dev, one_shot=True)
+    route = run_models_bench.route_kernels(pick, K)
     reset_counts()
     got = spmm(csr, torch.from_numpy(v_host).to(dev))
     torch.cuda.synchronize()
     launches["spmm"] = all_counts()
     ok = matches_oracle(got, oracle, cond, torch.float32)
-    print(f"spmm(csr, v) on cop20k k = {K}: correct={ok}, launches "
-          f"{launches['spmm']}")
+    print(f"spmm(csr, v) on cop20k k = {K}: {type(pick).__name__}, "
+          f"correct={ok}, launches {launches['spmm']}")
     check(ok, "spmm(csr, v) disagrees with the f64 oracle")
-    check(launches["spmm"]["B1"] == launches["spmm"]["B2"] == 1,
-          f"spmm(csr, v) launched {launches['spmm']}")
-    del csr
+    check(set(ROUTE_KERNELS[type(pick).__name__]) <= set(route)
+          and launches["spmm"] == {name: int(name in route)
+                                   for name in launches["spmm"]},
+          f"spmm(csr, v) launched {launches['spmm']}, not one of each of "
+          f"{route}")
+    del csr, pick
 
     import importlib.util
 
@@ -2762,8 +2910,131 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
     return launches
 
 
-def main() -> int:
+#: Phase 15: the results sweep's MAIN matrices at these widths, and how
+#: far the cost model's pick may be from the fastest class measured.
+ROUTING_KS = (1, 32)
+ROUTING_SLACK = 1.25
+
+
+def routing_cases(scale=1.0):
+    """``(name, csr, ks, in_sample)`` of phase 15: the results sweep's
+    ``MAIN`` matrices, whose gather times are the H100 table's records
+    (in sample), then matrices no probe calibrated on (held out): the
+    models benchmark's CG system at its k = 8, and the rungs of
+    ``exp_auto_threshold``'s band / off-band ladder at its k = 32."""
+    from sparsematrixmultiplicationmpi_tpu_torch.bench.systems import (
+        spd_banded_system,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
+        _probe, exp_auto_threshold as thr,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_results_sweep \
+        import MAIN
+
+    for name in MAIN:
+        yield name, _probe.matrix(name, scale), ROUTING_KS, True
+    yield ("cg_spd121k", spd_banded_system(max(int(121_192 * scale), 1000)),
+           (8,), False)
+    m = max(int(thr.M * scale), 1000)
+    for frac in thr.FRACS:
+        yield (f"ladder_off_band_{frac}", thr.mixed_csr(
+            frac, seed=int(frac * 100), m=m).astype(np.float32), (thr.K,),
+            False)
+
+
+def routing_phase(dev, power, scale=1.0) -> dict:
+    """Phase 15: routing on the card. For every matrix of
+    ``routing_cases`` and each of its k, each class the
+    search weighs (``route_candidates`` priced by the card's table: the
+    bucketed ELL and COO gather formats, the best ``WindowedPairs``, the
+    ``BandedBlocks`` where one builds), moved to the card, its ``Auto``
+    chain (encode, a body, decode) checked against the f64 oracle, and
+    one chain body timed with CUDA events over back-to-back calls, the
+    classes in turns (``scripts/_probe.py::seconds_each``): what
+    an iterative caller pays a multiply, and what ``est_seconds``
+    estimates. Its H100 estimate beside its time. The pick (the cheapest
+    estimate, ``auto_format(csr, device=cuda)``'s) must measure within
+    ``ROUTING_SLACK`` of the fastest class, on the matrices in sample and
+    on those held out alike."""
     import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import (
+        cost_table_for,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        route_candidates,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts import _probe
+
+    table = cost_table_for(dev)
+    print(f"routing: table {table.name} for {power}")
+    rows, misses = [], []
+    for name, csr, ks, in_sample in routing_cases(scale):
+        for k in ks:
+            t0 = time.perf_counter()
+            cands = [c for c in route_candidates(csr, device=dev,
+                                                 k_nominal=k)
+                     if c[2] is not None]
+            host_s = time.perf_counter() - t0
+            pick = min(cands, key=lambda c: c[1])[0]
+            v_host, v = _probe.fat_vector(csr.shape[1], k, dev)
+            oracle = _probe.Checked(csr, v_host)
+            bodies = []
+            for cls, est, op in cands:
+                try:
+                    bodies.append(_probe.chain_body(
+                        f"routing {name} k={k} {cls}", op.to(dev), v,
+                        oracle))
+                except RuntimeError as e:
+                    raise PhaseFailed(str(e)) from e
+            # In turns: no class is timed alone as the clocks ramp up.
+            measured = dict(zip([c[0] for c in cands],
+                                _probe.seconds_each(bodies, dev)))
+            del bodies
+            for cls, est, op in cands:
+                row = {"matrix": name, "k": k, "in_sample": in_sample,
+                       "class": cls, "format": type(op).__name__,
+                       "est_ms": est * 1e3, "ms": measured[cls] * 1e3,
+                       "pick": cls == pick}
+                if cls == "windowed":
+                    row.update(R=op.block_rows, C=op.chunk_cols,
+                               U=op.pairs_per_step, pairs=op.n_pairs,
+                               spill=op.spill is not None)
+                if cls == "banded":
+                    row.update(block_rows=op.block_rows)
+                rows.append(row)
+            fastest = min(measured, key=measured.get)
+            ratio = measured[pick] / measured[fastest]
+            print(f"routing {name} k={k} "
+                  f"({'in sample' if in_sample else 'held out'}): pick {pick} "
+                  f"{measured[pick] * 1e3:.4f} ms, fastest {fastest} "
+                  f"{measured[fastest] * 1e3:.4f} ms, ratio {ratio:.3f}; "
+                  + "; ".join(f"{r['class']} est {r['est_ms']:.4f} ms / "
+                              f"measured {r['ms']:.4f} ms" for r in rows
+                              if r["matrix"] == name and r["k"] == k)
+                  + f"; search {host_s:.1f} s", flush=True)
+            if ratio > ROUTING_SLACK:
+                misses.append(f"{name} k={k}: {pick} {ratio:.3f}x "
+                              f"{fastest}")
+            torch.cuda.empty_cache()
+    result = {"path": "routing_main_family", "table": table.name,
+              "power": power, "slack": ROUTING_SLACK, "rows": rows,
+              "misses": misses}
+    print(json.dumps(result))
+    check(not misses, "the H100 table's pick measures more than "
+          f"{ROUTING_SLACK}x the fastest class: {misses}")
+    return result
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--phase", type=int, nargs="+", choices=[14, 15],
+                    help="build the kernels and run only these phases")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2772,6 +3043,9 @@ def main() -> int:
     try:
         from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import (
             run_benchmark,
+        )
+        from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import (
+            V5E,
         )
         from sparsematrixmultiplicationmpi_tpu_torch.formats.windowed import (
             CompactTiles, WindowedPairs,
@@ -2821,6 +3095,17 @@ def main() -> int:
     print(info["ptxas"])
 
     phase_s["1"] = time.perf_counter() - t_phase
+    if args.phase:
+        if 14 in args.phase:
+            pagerank_phase(dev, power)
+            narrow_grid_phase(dev, power, cop20k_like(dtype=np.float32))
+            scripts_phase(dev, power)
+        if 15 in args.phase:
+            routing_phase(dev, power)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. operand
     t_phase = t0 = time.perf_counter()
@@ -2895,9 +3180,11 @@ def main() -> int:
           f"max_abs_err={max_abs_error(one_shot, oracle)}")
     print(f"main path peak device memory (one-shot and run_benchmark): "
           f"{peak} B")
-    print(f"launch counts {counts}; chain body calls {strat.body_calls}")
+    print(f"launch counts {counts}; chain body calls {strat.body_calls}; "
+          f"Auto's route on the card {strat.route}")
     result = {
         "metric": "spmm_gnnz_per_s_cop20k_k32",
+        "route": strat.route,
         "value": rec.gnnz_per_s, "unit": "Gnnz/s",
         "execution_time_s": rec.execution_time,
         "time_upper_bound_s": rec.time_upper_bound,
@@ -2931,6 +3218,9 @@ def main() -> int:
 
     phase_s["4"] = time.perf_counter() - t_phase
 
+    # 5.-13. drive the kernels at the shapes PERF.md §6 records: phases 5
+    # to 12 build with the reference's cost table (cost_table=V5E) as
+    # before the card had its own; the command line prices for the card.
     # 5. solver path
     t_phase = time.perf_counter()
     kernels.append(solver_phase(dev, power))
@@ -2979,6 +3269,12 @@ def main() -> int:
     del csr
     script_launches = scripts_phase(dev, power)
     phase_s["14"] = time.perf_counter() - t_phase
+
+    # 15. routing on the card: each class the H100 table weighs on the
+    # results sweep's MAIN matrices, estimated and measured
+    t_phase = time.perf_counter()
+    routing_phase(dev, power)
+    phase_s["15"] = time.perf_counter() - t_phase
     for e in kernels:
         name = e["name"].split()[0]
         if name in per_multiply:

@@ -46,7 +46,9 @@ def main(argv=None) -> int:
     v_host = smt.generate_fat_vector(n, k, seed=0).astype(np.float32)
     v = torch.from_numpy(v_host).to(args.device)
 
-    operand = auto_format(csr)  # windowed tiles, band, or bucketed ELL
+    # Windowed tiles, band, or a gather format, priced for one multiply
+    # on the device.
+    operand = auto_format(csr, device=args.device, one_shot=True)
     print(f"format: {type(operand).__name__}")
     out = spmm_any(operand.to(args.device), v)
 

@@ -6,7 +6,8 @@
 
 Builds the cop20k_A stand-in on the first CUDA device through ``Auto``
 (the options go to its format search, or, for ``--spill-dma-gather``,
-route the spill through kernel B7), encodes a k = 32 fat vector once
+force the spill through kernel B7, which the H100 cost table already
+takes by default), encodes a k = 32 fat vector once
 (``--k`` another width: one not a multiple of 8, such as 1, is
 zero-padded to the next multiple of 8 and runs the kernels),
 then runs 50 back-to-back chain bodies three times: on the host clock

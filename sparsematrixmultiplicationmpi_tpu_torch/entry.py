@@ -33,8 +33,8 @@ def entry(device="cuda"):
         n, n_features, n_classes, seed=0, dtype=np.float32)
     # The cast goes through the format's astype, which re-derives every
     # plane the kernels read; a leaf-by-leaf cast would not.
-    operand = auto_format(normalize_adjacency(adj)).astype(
-        torch.float32).to(device)
+    operand = auto_format(normalize_adjacency(adj), device=device,
+                          one_shot=True).astype(torch.float32).to(device)
     params = init_gcn(n_features, hidden, n_classes,
                       generator=torch.Generator().manual_seed(0),
                       dtype=torch.float32, device=device)
@@ -87,7 +87,8 @@ def _dryrun_rank(mesh) -> dict:
                        for a in (x, labels, mask))
     losses, trained = [], []
     for spmm in (make_distributed_symmetric_spmm(row, row.prepare(
-            a_hat, mesh)), make_symmetric_spmm(auto_format(a_hat).to(dev))):
+            a_hat, mesh)), make_symmetric_spmm(
+                auto_format(a_hat, device=dev, one_shot=True).to(dev))):
         params = init_gcn(n_features, hidden, n_classes,
                           generator=torch.Generator().manual_seed(0),
                           dtype=torch.float32, device=dev)

@@ -1,4 +1,5 @@
-"""Measured v5e gather-path calibration table (round 5).
+"""The reference's measured v5e gather-path calibration records (round
+5), the gather records of ``formats/cost.py::V5E``.
 
 Anchor grid for :func:`ops.auto.gather_class_estimates`: every record is
 one hardware measurement from ``scripts/exp_gather_calib3.py``

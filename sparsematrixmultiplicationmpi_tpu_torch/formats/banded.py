@@ -6,8 +6,9 @@ Row block ``b`` densifies the 3-block window of columns
 ``BucketedELL``. The builder and its cost estimate are host-side numpy,
 bit-identical to the JAX package (``auto_format`` compares this
 candidate's ``est_seconds`` with the windowed one, so routing parity needs
-both). The constants are the JAX package's TPU v5e cost model, carried
-verbatim until an H100 cost table exists.
+both). The estimate is priced by a ``CostTable`` (``formats/cost.py``):
+the reference's TPU v5e table by default, the H100 table when
+``auto_format`` prices for the card.
 """
 
 from __future__ import annotations
@@ -18,9 +19,33 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .cost import CostTable, cost_table_for
 from .matrix import BucketedELL, CSR, array_dtype, cast, to_tensor
 
 __all__ = ["BandedBlocks", "band_coverage"]
+
+
+def _band_passes(t: CostTable, r: int, k: int) -> int:
+    """Times a width-``k`` multiply reads a ``block_rows = r`` band: once
+    per ``band_k_cols`` columns where the band kernel takes it (a CTA
+    holds that many columns of the fat vector), else once."""
+    if t.band_k_cols and r <= t.max_kernel_block_rows:
+        return -(-k // t.band_k_cols)
+    return 1
+
+
+def _band_stream_s(t: CostTable, r: int, k: int, nbytes: int,
+                   bw: Optional[float] = None) -> float:
+    """Seconds to stream a ``block_rows = r`` band of ``nbytes`` for a
+    width-``k`` multiply (``_band_passes`` reads) at ``bw``, else at the
+    rate of its route: ``band_bw`` through the band kernel,
+    ``band_matmul_bw`` (``band_bw`` where the table has none) through
+    the batched matmuls."""
+    if bw is None:
+        bw = t.band_bw
+        if r > t.max_kernel_block_rows and t.band_matmul_bw is not None:
+            bw = t.band_matmul_bw
+    return nbytes * _band_passes(t, r, k) / bw
 
 
 def band_coverage(csr: CSR, block_rows: int) -> float:
@@ -103,20 +128,26 @@ class BandedBlocks:
     def from_csr(cls, csr: CSR, block_rows: Optional[int] = None, *,
                  candidates=(128, 256, 512), min_coverage: float = 0.5,
                  max_inflation: float = 64.0,
-                 hbm_bw: float = 819e9,
-                 gather_ns_per_row: float = 1.6,
-                 k_nominal: int = 32) -> Optional["BandedBlocks"]:
+                 hbm_bw: Optional[float] = None,
+                 gather_ns_per_row: Optional[float] = None,
+                 k_nominal: int = 32,
+                 cost_table: Optional[CostTable] = None,
+                 ) -> Optional["BandedBlocks"]:
         """Build band-dense storage, choosing ``block_rows`` by the cost
-        model (dense-band streaming at ``hbm_bw`` + spilled rows at the
-        per-row gather cost). Returns ``None`` when every candidate loses
-        to the pure gather path or violates ``min_coverage`` /
-        ``max_inflation``."""
+        model (dense-band streaming at ``hbm_bw``, once per the table's
+        ``band_k_cols`` columns of a ``k_nominal``-wide vector where the
+        band kernel takes the band, + spilled rows at the per-row gather
+        cost; both default to ``cost_table``'s, the reference's table by
+        default: its rate of the band's route, ``_band_stream_s``). Returns ``None`` when every
+        candidate loses to the pure gather path or violates
+        ``min_coverage`` / ``max_inflation``."""
+        t = cost_table_for(None, cost_table)
+        if gather_ns_per_row is None:
+            gather_ns_per_row = t.gather_s_per_row * 1e9
         m, n = csr.shape
         itemsize = np.asarray(csr.values).dtype.itemsize
         nnz = max(csr.nnz, 1)
         if block_rows is None:
-            from .windowed import SPILL_RESTORE_S_PER_ROW
-
             gather_time = nnz * gather_ns_per_row * 1e-9
             best = None
             vb = nnz * itemsize
@@ -132,10 +163,10 @@ class BandedBlocks:
                     from ..ops.auto import _calibrated_gather_seconds
 
                     spill_s = max(spill_s, _calibrated_gather_seconds(
-                        "ell", int(spill_nnz * 1.6), m, k_nominal))
-                est = (dense_bytes / hbm_bw
+                        "ell", int(spill_nnz * 1.6), m, k_nominal, t))
+                est = (_band_stream_s(t, r, k_nominal, dense_bytes, hbm_bw)
                        + spill_s
-                       + (m * SPILL_RESTORE_S_PER_ROW if cov < 1.0
+                       + (m * t.spill_restore_s_per_row if cov < 1.0
                           else 0.0))
                 if (cov >= min_coverage and dense_bytes <= max_inflation * vb
                         and est < gather_time):
@@ -172,20 +203,18 @@ class BandedBlocks:
                 vals[~in_band], i[~in_band], j[~in_band], (m, n))
             spill = BucketedELL.from_csr(
                 spill_coo.to_csr(), width_align=4, max_buckets=12)
-        from .windowed import (
-            GATHER_S_PER_ROW, HBM_BW, SPILL_RESTORE_S_PER_ROW,
-        )
-
         row_bytes = k_nominal * 4
-        spill_s = n_out * GATHER_S_PER_ROW
+        spill_s = n_out * t.gather_s_per_row
         if n_out > 0.05 * nnz:
             from ..ops.auto import _calibrated_gather_seconds
 
             spill_s = max(spill_s, _calibrated_gather_seconds(
-                "ell", int(n_out * 1.6), m, k_nominal))
-        est = (band.nbytes / HBM_BW
-               + 4 * m * row_bytes / HBM_BW
+                "ell", int(n_out * 1.6), m, k_nominal, t))
+        est = (_band_stream_s(t, r, k_nominal, band.nbytes)
+               + 4 * m * row_bytes / t.hbm_bw
                + spill_s
-               + (m * SPILL_RESTORE_S_PER_ROW if n_out else 0.0))
+               + (m * t.spill_restore_s_per_row if n_out else 0.0))
+        if t.call_s:
+            est += t.call_s
         return cls(band=band, spill=spill, shape=(m, n), block_rows=r,
                    est_seconds=float(est))

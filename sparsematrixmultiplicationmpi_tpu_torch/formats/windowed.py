@@ -14,10 +14,12 @@ planes ``tiles_t`` and the phase-major layout (``phase_layout=True``,
 ``build_phase_layout``). On the card the Hopper kernels B1
 (``ops/cuda_windowed.py::windowed_matmul_tmulti``) and B6 read
 ``tiles_t``'s nonzeros only, as a ``CompactTiles`` plane that
-``WindowedPairs.to`` builds once per operand. The cost constants below are the JAX package's TPU v5e
-measurements, carried verbatim so the port routes exactly as the
-reference does; an H100 cost table is later work. bf16 host arrays are
-``uint16`` bit patterns (``formats/matrix.py::to_tensor``).
+``WindowedPairs.to`` builds once per operand. The tile search is
+priced by a ``CostTable`` (``formats/cost.py``): by default the
+reference's TPU v5e table, so a host build routes exactly as the JAX
+package's; ``ops/auto.py::auto_format`` passes the H100 table when it
+prices for a card. bf16 host arrays are ``uint16`` bit patterns
+(``formats/matrix.py::to_tensor``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .cost import V5E, CostTable, cost_table_for
 from .matrix import BucketedELL, CSR, ELL, array_dtype, cast, to_tensor
 
 __all__ = ["WindowedPairs", "CompactTiles", "windowed_cost_estimate",
@@ -40,95 +43,23 @@ DEFAULT_CANDIDATES = ((64, 256), (128, 256), (256, 256),
                       (64, 128), (128, 128), (256, 128),
                       (8, 128), (16, 128), (32, 128))
 
-#: Measured TPU v5e constants driving the dense/spill split (round-2
-#: kernel measurements,
-#: scripts/exp_kernel_probe10.py, probe13): XLA row gather ~4.8 ns/row
-#: regardless of width; raw elementwise streaming ~819 GB/s. The
-#: auto-pipelined Pallas kernel is MXU/overhead-bound, modeled per-pair
-#: as a fixed step cost plus tile+slab bytes at an effective rate.
-#: Production lane-packed split-bf16 3-pass f32 kernel, fit over the
-#: probe14 shape sweep (580.5/926.2 ns at (256,256)/(512,256)):
-#: ~191 ns fixed + ~758 GB/s marginal. (Separate hi/lo streams fit
-#: 190 ns + 615 GB/s, probe13; the retired 6-pass HIGHEST kernel
-#: 114 ns + 455 GB/s, probe10.) ADDITIVE, so small tiles are
-#: overhead-bound and the cost model sizes tiles to balance coverage
-#: against the fixed cost.
-HBM_BW = 819e9
-#: Re-measured 2026-08-19 on the round-4 chip/runtime: 1.53-1.57 ns/row
-#: in two independent runs (scripts/check_cost_constants.py,
-#: results/cost_constants_check.json) vs the round-1 4.8. The cop20k
-#: dense/spill split is insensitive to the change (zero spill either
-#: way — the fixed m-row restore dominates marginal decisions).
-GATHER_S_PER_ROW = 1.6e-9
-TILE_OVERHEAD_S = 191e-9
-TILE_STREAM_BW = 758e9
-#: Kernel generation new builds target: 2 = two-pair kernel with even
-#: per-block runs; >2 = transposed U-pair kernel
-#: (``ops/pallas_windowed.py::windowed_matmul_tmulti``), global tail pad
-#: only. FLIPPED to 16 from real-v5e probe17 (2026-08-19,
-#: results/probe17_tmulti.json): (128,128) U=16 measured 1.458 ms on the
-#: cop20k stand-in vs 2.754 ms for the shipped U=2 split3 — 1.89x.
-#: U=32 regresses (2.18 ms: 32 double-buffered slab streams blow the
-#: VMEM budget).
-PRODUCTION_PAIRS_PER_STEP = 16
-#: tmulti cost-model constants, fit on probe17's U=8/16 points at
-#: (128,128) with the streamed-bytes term held at TILE_STREAM_BW
-#: (reproduces both measured per-pair costs to 0.1 ns; U=4 is
-#: overestimated — harmless, production is 16):
-#:   cost/pair = TMULTI_STEP_S/U + TMULTI_PAIR_S + bytes/TILE_STREAM_BW
-TMULTI_STEP_S = 77e-9
-#: Deliberately NOT refit after the round-5 acc2 adoption: the shipped
-#: two-accumulator kernel's marginal pair cost at (128,128) measured
-#: ~5-13 ns (probe23 1.292 ms / probe24 1.144 ms, ~11 % chip spread),
-#: but this constant is shape-blind and is precisely what keeps the
-#: search off fine tiles, whose measured per-pair cost is 185-200 ns
-#: (probe18: compute does NOT hide behind the thinner DMA streams
-#: there). Lowering it to the (128,128)-only value would re-admit
-#: shapes measured 1.4-1.8x slower; the ~10 % absolute overestimate at
-#: the production shape is the price of a safe relative ordering.
-TMULTI_PAIR_S = 29e-9
-#: Per-output-row cost of a nonzero spill: the bucketed-ELL restore take
-#: over m rows plus the full-size add (419 us measured at m=121k, k=32 —
-#: scripts/exp_kernel_probe13.py ``scat`` — i.e. ~3.5 ns/row; a 23k-row
-#: scatter-add alternative measured slower at 573 us).
-SPILL_RESTORE_S_PER_ROW = 3.5e-9
-#: Auto-search refuses tilings whose optimal split spills more than this
-#: fraction of nnz. Measured bracket (round-5 threshold ladder,
-#: results/auto_threshold_tpu.json): a 54 %-spill build WINS vs gather
-#: (1.47 vs 2.17 ms, rung 0.55) while a 74 %-spill build LOSES 2.1x
-#: (8.74 vs 4.08 ms, rung 0.75); every family windowed wins in the
-#: round-4 sweep keeps spill <= 22 %. The boundary is placed between
-#: the two measured rungs. Callers pinning ``block_rows`` bypass the
-#: guard (explicit spill-path tests/probes).
-SPILL_FRAC_REFUSE = 0.65
-#: Sub-sublane fat vectors (k % 8 != 0) at least this wide are zero-
-#: padded to the next sublane multiple and run through the Pallas kernel
-#: (Mosaic cannot lower unaligned dots); narrower k takes the XLA path.
-#: Consumed by ``ops/windowed.py::spmm_windowed_core`` and the
-#: distributed ``_local_windowed`` dispatch; the cost model below prices
-#: the padded slab traffic accordingly. Re-tune against
-#: scripts/exp_kpad_windowed.py when hardware numbers land.
-KPAD_MIN_K = 12
-#: Densification memory guards (v5e HBM = 16 GB; U>2 f32 builds hold
-#: tiles + tiles_split + tiles_t, so the true host footprint is ~3x
-#: the tile array — 2x for bf16/U<=2). Below ``DENSE_BYTES_ALLOWANCE``
-#: the DEFAULT ``max_inflation`` RATIO is not enforced — the cost model
-#: already prices the streamed bytes, and on tiny-nnz diffuse matrices
-#: (roadnet class: 6 MB of nnz) a 197x ratio is a harmless 1.2 GB that
-#: measured 8x faster than every gather path. A caller-SUPPLIED
-#: ``max_inflation`` is strict (an explicit memory bound must bound
-#: memory). ``DENSE_BYTES_HARD_CAP`` always binds (a
-#: ratio-passing 100M-nnz build could otherwise OOM).
-DENSE_BYTES_ALLOWANCE = 2_000_000_000
-DENSE_BYTES_HARD_CAP = 6_000_000_000
-#: VMEM budget for one phase's resident fat-vector slab window
-#: (``ops/pallas_windowed.py::_kernel_tmulti_resident``). probe18's
-#: envelope: a 7 MB window + the double-buffered U=16 tile stream
-#: compiled and ran under a 14 MB limit on v5e — the constant-index
-#: window block is single-buffered. A v5e budget, kept verbatim so the
-#: phase layout and the phased kernel's resident/streamed gate match the
-#: reference; on the H100 a window this size stays in the 50 MB L2.
-RESIDENT_SLAB_VMEM_BYTES = 7 * 1024 * 1024
+#: The reference's TPU v5e routing constants, as module names for parity
+#: with the JAX package. Every pricing function here reads them from a
+#: ``CostTable`` (``formats/cost.py``): these are ``V5E``'s values, and
+#: the card's are ``H100``'s.
+HBM_BW = V5E.hbm_bw
+GATHER_S_PER_ROW = V5E.gather_s_per_row
+TILE_OVERHEAD_S = V5E.tile_overhead_s
+TILE_STREAM_BW = V5E.tile_stream_bw
+PRODUCTION_PAIRS_PER_STEP = V5E.production_pairs_per_step
+TMULTI_STEP_S = V5E.tmulti_step_s
+TMULTI_PAIR_S = V5E.tmulti_pair_s
+SPILL_RESTORE_S_PER_ROW = V5E.spill_restore_s_per_row
+SPILL_FRAC_REFUSE = V5E.spill_frac_refuse
+KPAD_MIN_K = V5E.kpad_min_k
+DENSE_BYTES_ALLOWANCE = V5E.dense_bytes_allowance
+DENSE_BYTES_HARD_CAP = V5E.dense_bytes_hard_cap
+RESIDENT_SLAB_VMEM_BYTES = V5E.resident_slab_vmem_bytes
 
 
 def _split_planes(tiles: np.ndarray) -> Optional[np.ndarray]:
@@ -234,13 +165,15 @@ def build_phase_layout(pb, pc, nb: int, n_chunks: int, cpp: int, U: int):
             tuple(phases))
 
 
-def _chunks_per_phase(C: int, itemsize: int, k_nominal: int) -> int:
-    """Chunks per resident phase for the VMEM budget: one chunk's slab
-    is ``k8 x slab_w`` bf16 (lane-packed hi|lo for f32 data, single
+def _chunks_per_phase(C: int, itemsize: int, k_nominal: int,
+                      cost_table: Optional[CostTable] = None) -> int:
+    """Chunks per resident phase for the table's slab budget: one chunk's
+    slab is ``k8 x slab_w`` bf16 (lane-packed hi|lo for f32 data, single
     plane for bf16)."""
+    budget = cost_table_for(None, cost_table).resident_slab_vmem_bytes
     k8 = -(-max(k_nominal, 8) // 8) * 8
     slab_w = 2 * C if itemsize == 4 else C
-    return max(int(RESIDENT_SLAB_VMEM_BYTES // (k8 * slab_w * 2)), 1)
+    return max(int(budget // (k8 * slab_w * 2)), 1)
 
 
 def _phase_fields(tiles, tiles_split, pair_block, pair_chunk, nb: int,
@@ -514,10 +447,20 @@ def _plane_dtype(x) -> torch.dtype:
     return x.dtype if isinstance(x, CompactTiles) else array_dtype(x)
 
 
+def _padded_k(k_nominal: int, t: CostTable) -> int:
+    """The width the windowed kernels stream for ``k_nominal``: an
+    unaligned k of at least ``kpad_min_k`` padded to a multiple of 8."""
+    if k_nominal % 8 and k_nominal >= t.kpad_min_k:
+        return -(-k_nominal // 8) * 8
+    return k_nominal
+
+
 def _pair_cost_s(R: int, C: int, itemsize: int, k_nominal: int,
-                 pairs_per_step: int = 2) -> float:
+                 pairs_per_step: int = 2,
+                 cost_table: Optional[CostTable] = None) -> float:
     """Cost of one dense tile: fixed overheads plus tile and
-    fat-vector-slab bytes at the measured kernel streaming rate.
+    fat-vector-slab bytes at the measured kernel streaming rate (a table
+    that prices dense tiles: the reference's).
 
     U <= 2 (two-pair kernel, probe14 fit): per-step fixed cost
     ``2*TILE_OVERHEAD_S`` split across the step's two pairs. U > 2
@@ -526,20 +469,64 @@ def _pair_cost_s(R: int, C: int, itemsize: int, k_nominal: int,
     per dynamic slab fetch + dots — the binding constant for fine
     tiles).
 
-    Sub-sublane ``k_nominal`` >= ``KPAD_MIN_K`` is priced at the padded
+    Sub-sublane ``k_nominal`` >= ``kpad_min_k`` is priced at the padded
     width the kernel actually streams (the k-pad route)."""
-    k_eff = k_nominal
-    if k_nominal % 8 and k_nominal >= KPAD_MIN_K:
-        k_eff = -(-k_nominal // 8) * 8
+    t = cost_table_for(None, cost_table)
+    k_eff = _padded_k(k_nominal, t)
     # Tile bytes: R*C*itemsize (f32 ships as two bf16 planes = same
     # bytes; bf16 ships one). Slab bytes scale the same way: bf16 hi|lo
     # lane-packed for f32 data (k*2C*2 = k*C*itemsize), single bf16
     # plane for bf16 data.
-    stream = (R * C + C * k_eff) * itemsize / TILE_STREAM_BW
+    stream = (R * C + C * k_eff) * itemsize / t.tile_stream_bw
     if pairs_per_step > 2:
-        return (TMULTI_STEP_S / pairs_per_step + TMULTI_PAIR_S
+        return (t.tmulti_step_s / pairs_per_step + t.tmulti_pair_s
                 + stream)
-    return TILE_OVERHEAD_S * 2 / pairs_per_step + stream
+    return t.tile_overhead_s * 2 / pairs_per_step + stream
+
+
+#: How the card's compact kernels (``csrc/windowed_kernels.cu``: B1, B6
+#: and B3 / B4 bf16 on their compact planes) split the work: a CTA takes
+#: ``K_SLICE`` columns of the padded fat vector (``kCKS``) and ``R_SLICE``
+#: output rows (``kCRS``) of one block, walks the block's pairs in turn,
+#: and stages a pair's entries in windows of up to ``WINDOW_ENTRIES``
+#: (``kCap``), each window with the pair's slab.
+K_SLICE, R_SLICE, WINDOW_ENTRIES = 32, 128, 1024
+
+
+def tile_windows(counts, R: int) -> np.ndarray:
+    """The windows a CTA stages for tiles of ``counts`` entries (their
+    entries spread over the ``R_SLICE`` row slices of an R-row block)."""
+    per_cta = -(-np.asarray(counts, dtype=np.int64)
+                // (-(-R // R_SLICE) * WINDOW_ENTRIES))
+    return np.maximum(per_cta, 1)
+
+
+def _compact_shape(R: int, C: int, itemsize: int, k_nominal: int,
+                   pairs_per_step: int, t: CostTable):
+    """(CTAs a block, row slices, seconds a window, seconds an entry) of
+    the card's compact kernel for one tiling and width."""
+    k8 = -(-max(_padded_k(k_nominal, t), 1) // 8) * 8
+    rs = -(-R // R_SLICE)
+    fixed = t.tmulti_pair_s if pairs_per_step > 2 else t.tile_overhead_s
+    window = fixed + C * min(k8, K_SLICE) * itemsize / t.tile_stream_bw
+    return -(-k8 // K_SLICE) * rs, rs, window, t.entry_s
+
+
+def compact_kernel_s(block_windows, block_entries, R: int, C: int,
+                     itemsize: int, k_nominal: int, pairs_per_step: int,
+                     cost_table: CostTable) -> float:
+    """Seconds of one launch of the card's compact windowed kernel over
+    blocks of ``block_windows`` windows and ``block_entries`` entries: a
+    block's CTA costs its windows' staging and its share of the entries;
+    the launch takes the larger of all CTAs' work over the ``ctas`` that
+    run at once and ``chain_floor`` times the costliest CTA."""
+    t = cost_table
+    ctas, rs, window, entry = _compact_shape(R, C, itemsize, k_nominal,
+                                             pairs_per_step, t)
+    cta = (np.asarray(block_windows, dtype=np.float64) * window
+           + np.asarray(block_entries, dtype=np.float64) / rs * entry)
+    return max(ctas * float(cta.sum()) / t.ctas,
+               t.chain_floor * float(cta.max(initial=0.0)))
 
 
 def _pair_counts(i, j, R: int, C: int, n_chunks: int):
@@ -554,7 +541,8 @@ def _pair_counts(i, j, R: int, C: int, n_chunks: int):
 def windowed_cost_estimate(i, j, m: int, n: int, R: int, C: int,
                            itemsize: int, k_nominal: int = 32,
                            pairs_per_step: int = 2,
-                           allow_spill: bool = True):
+                           allow_spill: bool = True,
+                           cost_table: Optional[CostTable] = None):
     """Estimated per-SpMM seconds for tile size (R, C) with the GLOBAL
     optimal dense/spill split, plus the count threshold and tile stats.
     ``allow_spill=False`` forces every nonempty tile dense (spill-free
@@ -569,28 +557,57 @@ def windowed_cost_estimate(i, j, m: int, n: int, R: int, C: int,
     The fixed m-row spill-restore term means the optimum sometimes lands
     at zero spill (every nonempty tile dense) — a per-tile marginal rule
     can never choose that. Pure host-side numpy (build-time only).
+
+    A table with ``compact_tiles`` (the card) prices the card's compact
+    kernels instead (``compact_kernel_s``): summed work over the CTAs
+    that run at once, or the costliest block's chain of windows where
+    that is longer; the split is chosen on the summed work. The estimate
+    is then that of one body of the operand's chain: the kernel alone
+    where ``Auto`` chains it in transposed state (U > 2, R = C, a
+    multiple of ``R_SLICE``, square, no spill), else plus ``call_s``, the
+    chain body's other work (B2, the relayouts, the spill's ops).
     """
+    t = cost_table_for(None, cost_table)
     n_chunks = -(-n // C)
     _, uniq, _, counts = _pair_counts(i, j, R, C, n_chunks)
-    pair_cost = _pair_cost_s(R, C, itemsize, k_nominal, pairs_per_step)
     order = np.argsort(-counts, kind="stable")
     cs = counts[order]
     spill_after = np.concatenate([cs[::-1].cumsum()[::-1], [0]])
     t_axis = np.arange(len(cs) + 1)
-    totals = (t_axis * pair_cost
-              + spill_after * GATHER_S_PER_ROW
-              + (spill_after > 0) * m * SPILL_RESTORE_S_PER_ROW)
+    if t.compact_tiles:
+        ctas, rs, window, entry = _compact_shape(
+            R, C, itemsize, k_nominal, pairs_per_step, t)
+        per_tile = tile_windows(cs, R) * window + cs / rs * entry
+        work = ctas * np.concatenate([[0], per_tile.cumsum()]) / t.ctas
+    else:
+        work = t_axis * _pair_cost_s(R, C, itemsize, k_nominal,
+                                     pairs_per_step, t)
+    totals = (work
+              + spill_after * t.gather_s_per_row
+              + (spill_after > 0) * m * t.spill_restore_s_per_row)
     best_t = int(np.argmin(totals)) if allow_spill else len(cs)
-    est = float(totals[best_t]) + m * k_nominal * 4 / HBM_BW
+    est = float(totals[best_t]) + m * k_nominal * 4 / t.hbm_bw
     dense = np.zeros(len(counts), dtype=bool)
     dense[order[:best_t]] = True
+    if t.compact_tiles:
+        blocks = uniq[dense] // n_chunks
+        kernel = compact_kernel_s(
+            np.bincount(blocks, weights=tile_windows(counts[dense], R)),
+            np.bincount(blocks, weights=counts[dense]), R, C, itemsize,
+            k_nominal, pairs_per_step, t)
+        est += kernel - float(work[best_t])
+        t_chain = (pairs_per_step > 2 and R == C and R % R_SLICE == 0
+                   and m == n and best_t == len(cs))
+        if not t_chain:
+            est += t.call_s
     threshold = float(cs[best_t - 1]) if best_t else np.inf
     return est, threshold, dense, uniq, counts
 
 
 def build_dense_pairs(i, j, vals, m: int, n: int, R: int, C: int,
                       itemsize: int, k_nominal: int = 32,
-                      pairs_per_step: int = 2):
+                      pairs_per_step: int = 2,
+                      cost_table: Optional[CostTable] = None):
     """Identify above-threshold (row-block, column-chunk) tiles and
     materialize them, block-sorted.
 
@@ -607,7 +624,8 @@ def build_dense_pairs(i, j, vals, m: int, n: int, R: int, C: int,
     """
     n_chunks = -(-n // C)
     _, _, dense, uniq, counts = windowed_cost_estimate(
-        i, j, m, n, R, C, itemsize, k_nominal, pairs_per_step)
+        i, j, m, n, R, C, itemsize, k_nominal, pairs_per_step,
+        cost_table=cost_table)
 
     key = (i // R).astype(np.int64) * n_chunks + (j // C).astype(np.int64)
     pair_of_entry = np.searchsorted(uniq, key)
@@ -630,32 +648,36 @@ def _search_tilings(csr: "CSR", i0, j0, *, block_rows=None,
                     chunk_cols=None, reorder="auto",
                     candidates=DEFAULT_CANDIDATES, k_nominal: int = 32,
                     max_inflation: Optional[float] = None,
-                    beat_gather_margin: float = 0.8,
+                    beat_gather_margin: Optional[float] = None,
                     pairs_per_step: int = 2,
                     gather_baseline_s: Optional[float] = None,
-                    allow_spill: bool = True):
-    """Cost-model search over tile shapes x orderings (host-side numpy).
+                    allow_spill: bool = True,
+                    cost_table: Optional[CostTable] = None):
+    """Cost-model search over tile shapes x orderings (host-side numpy),
+    priced by ``cost_table`` (default: the reference's).
 
     Returns the winning ``(est, R, C, perm, i, j, dense, uniq, counts)``
     tuple, or ``None`` when no configuration beats the gather-path
-    baseline by ``beat_gather_margin`` (or no tile clears the dense
-    threshold) — the caller then falls back to a gather format.
+    baseline by ``beat_gather_margin`` (default: the table's), or no
+    tile clears the dense threshold — the caller then falls back to a
+    gather format.
 
     ``gather_baseline_s`` is the seconds-per-SpMM the caller's actual
     gather alternative would cost (``ops/auto.py::
     gather_class_estimates``); default is the legacy optimistic
-    ``nnz * GATHER_S_PER_ROW``. The distinction matters on diffuse
+    ``nnz * gather_s_per_row``. The distinction matters on diffuse
     high-m matrices (roadnet class): the legacy baseline is ~4-10x
     rosier than any real gather path there, so the gate refused tilings
     that beat every real alternative by 8x (round-4 TPU sweep: windowed
     9.9 ms vs the COO fallback's 80 ms).
     """
+    t = cost_table_for(None, cost_table)
     m, n = csr.shape
     itemsize = np.asarray(csr.values).dtype.itemsize
     # None = default ratio with the small-matrix byte allowance; an
     # explicit caller value is a strict memory bound.
     ratio_cap = 96.0 if max_inflation is None else float(max_inflation)
-    allowance = DENSE_BYTES_ALLOWANCE if max_inflation is None else 0
+    allowance = t.dense_bytes_allowance if max_inflation is None else 0
 
     tile_shapes = []
     for cand in candidates:
@@ -678,9 +700,10 @@ def _search_tilings(csr: "CSR", i0, j0, *, block_rows=None,
         # silently fall back to the XLA path on hardware. Prefer
         # kernel-eligible shapes, but keep the caller's list when none
         # qualify (tiny matrices / explicit candidate sets — the
-        # dispatch falls back correctly).
+        # dispatch falls back correctly). A table that prices the card's
+        # compact kernels prices only the tilings they run.
         eligible = [(r, c) for r, c in tile_shapes if r % 128 == 0]
-        if eligible:
+        if eligible or t.compact_tiles:
             tile_shapes = eligible
     if not tile_shapes and block_rows is not None:
         tile_shapes = [(int(block_rows), int(chunk_cols or 128))]
@@ -696,13 +719,13 @@ def _search_tilings(csr: "CSR", i0, j0, *, block_rows=None,
         orderings.append((perm, inv[i0], inv[j0]))
 
     gather_est = (gather_baseline_s if gather_baseline_s is not None
-                  else csr.nnz * GATHER_S_PER_ROW)
+                  else csr.nnz * t.gather_s_per_row)
     best = None
     for perm, i, j in orderings:
         for R, C_cand in tile_shapes:
             est, _, dense, uniq, counts = windowed_cost_estimate(
                 i, j, m, n, R, C_cand, itemsize, k_nominal,
-                pairs_per_step, allow_spill=allow_spill,
+                pairs_per_step, allow_spill=allow_spill, cost_table=t,
             )
             # Re-price a NONTRIVIAL spill with the calibrated gather
             # surface: the linear 1.6 ns/entry inside the split is a
@@ -721,18 +744,18 @@ def _search_tilings(csr: "CSR", i0, j0, *, block_rows=None,
                 from ..ops.auto import _calibrated_gather_seconds
 
                 est += (_calibrated_gather_seconds(
-                    "ell", int(spill_nnz * 1.6), m, k_nominal)
-                    - spill_nnz * GATHER_S_PER_ROW)
-            # Spill-majority guard (see SPILL_FRAC_REFUSE): when the
+                    "ell", int(spill_nnz * 1.6), m, k_nominal, t)
+                    - spill_nnz * t.gather_s_per_row)
+            # Spill-majority guard (``spill_frac_refuse``): when the
             # optimal split spills most of the matrix, windowed is the
             # wrong CLASS and the linear spill term misses several-fold.
             # Auto-search only — a caller pinning block_rows (spill-path
             # tests, probes) builds what it asks.
             if (block_rows is None
-                    and spill_nnz > SPILL_FRAC_REFUSE * max(csr.nnz, 1)):
+                    and spill_nnz > t.spill_frac_refuse * max(csr.nnz, 1)):
                 continue
             tile_bytes = int(dense.sum()) * R * C_cand * itemsize
-            if tile_bytes > DENSE_BYTES_HARD_CAP:
+            if tile_bytes > t.dense_bytes_hard_cap:
                 continue
             if (tile_bytes > ratio_cap * csr.nnz * itemsize
                     and tile_bytes > allowance):
@@ -741,6 +764,8 @@ def _search_tilings(csr: "CSR", i0, j0, *, block_rows=None,
                 best = (est, R, C_cand, perm, i, j, dense, uniq, counts)
     if best is None:
         return None
+    if beat_gather_margin is None:
+        beat_gather_margin = t.beat_gather_margin
     if best[0] > beat_gather_margin * gather_est or not best[6].any():
         return None
     return best
@@ -1038,21 +1063,26 @@ class WindowedPairs:
                  candidates=DEFAULT_CANDIDATES,
                  k_nominal: int = 32,
                  max_inflation: Optional[float] = None,
-                 beat_gather_margin: float = 0.8,
+                 beat_gather_margin: Optional[float] = None,
                  pairs_per_step: Optional[int] = None,
                  gather_baseline_s: Optional[float] = None,
                  allow_spill: bool = True,
                  phase_layout: bool = False,
+                 cost_table: Optional[CostTable] = None,
                  ) -> Optional["WindowedPairs"]:
         """Build windowed storage (the JAX package's builder, same
         arguments, same arrays); returns ``None`` when no tiling beats the
-        gather path by ``beat_gather_margin``. ``phase_layout=True`` opts
+        gather path by ``beat_gather_margin`` (default: the table's).
+        ``phase_layout=True`` opts
         a kernel-eligible U>2 build (``R % 128 == 0``) into the
         phase-major layout of kernel B6; off by default, as in the
         reference (measured slower than the block-major kernel on the
-        v5e)."""
+        v5e). ``cost_table`` prices the search (default: the reference's
+        table; ``ops/auto.py::auto_format`` passes its device's) and
+        gives the default ``pairs_per_step``."""
+        table = cost_table_for(None, cost_table)
         if pairs_per_step is None:
-            pairs_per_step = PRODUCTION_PAIRS_PER_STEP
+            pairs_per_step = table.production_pairs_per_step
         if not isinstance(pairs_per_step, int) or pairs_per_step < 2:
             # A value < 2 would skip BOTH padding branches yet still
             # dispatch to the two-pair kernel — the odd-run silent-
@@ -1080,7 +1110,7 @@ class WindowedPairs:
             beat_gather_margin=beat_gather_margin,
             pairs_per_step=pairs_per_step,
             gather_baseline_s=gather_baseline_s,
-            allow_spill=allow_spill,
+            allow_spill=allow_spill, cost_table=table,
         )
         if best is None:
             return None
@@ -1166,7 +1196,7 @@ class WindowedPairs:
         cpp = 0
         if pairs_per_step > 2:
             if phase_layout and R % 128 == 0:
-                cpp = _chunks_per_phase(C, itemsize, k_nominal)
+                cpp = _chunks_per_phase(C, itemsize, k_nominal, table)
                 tiles_t, pb_ph, pc_ph, phases = _phase_fields(
                     tiles, split, pair_block, pair_chunk, nb, n_chunks,
                     cpp, pairs_per_step)

@@ -98,9 +98,12 @@ def make_spmm(csr: CSR, *, device="cuda",
               **format_kwargs) -> Callable[[torch.Tensor], torch.Tensor]:
     """``v -> A v`` with backward ``g -> A^T g`` through a second
     operand, ``auto_format`` of the transpose (general matrices). Both
-    operands are built on the host and moved to ``device``."""
-    operand = auto_format(csr, **format_kwargs).to(device)
-    operand_t = auto_format(transpose_csr(csr), **format_kwargs).to(device)
+    operands are built on the host, priced for one ``spmm_any`` on
+    ``device`` (``auto_format(one_shot=True)``), and moved there."""
+    format_kwargs = {"one_shot": True, **format_kwargs}
+    operand = auto_format(csr, device=device, **format_kwargs).to(device)
+    operand_t = auto_format(transpose_csr(csr), device=device,
+                            **format_kwargs).to(device)
 
     def spmm(v: torch.Tensor) -> torch.Tensor:
         return _SpMM.apply(v, operand, operand_t)

@@ -27,7 +27,9 @@ from .ell import spmm_bucketed
 __all__ = ["band_matmul", "band_matmul_plain", "spmm_banded_cuda",
            "launch_counts", "reset_launch_counts", "MAX_KERNEL_BLOCK_ROWS"]
 
-#: The widest band B5 takes; the reference sends only these to its kernel.
+#: The widest band B5 takes (its design: the CTA's shared window of v is
+#: sized for ``3 * 128`` rows, ``kBandMaxR``). Which bands ``spmm_any``
+#: sends to it is the cost table's gate (``formats/cost.py``).
 MAX_KERNEL_BLOCK_ROWS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

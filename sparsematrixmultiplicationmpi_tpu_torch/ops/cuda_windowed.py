@@ -44,9 +44,9 @@ import itertools
 
 import torch
 
+from ..formats.cost import dispatch_table
 from ..formats.windowed import (
-    COMPACT_MAX_C, RESIDENT_SLAB_VMEM_BYTES, CompactTiles, WindowedPairs,
-    dense_plane,
+    COMPACT_MAX_C, CompactTiles, WindowedPairs, dense_plane,
 )
 from ._kernel_lib import check_launch, load_library
 
@@ -347,7 +347,7 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
     dense (plain version, CPU) or its ``CompactTiles`` (the kernels).
     Resident route: one B6 launch writes every phase's block-range
     partial, in phase order; streamed route (``force_streamed``, or a
-    chunk window past the reference's ``RESIDENT_SLAB_VMEM_BYTES`` at
+    chunk window past the dispatch table's ``resident_slab_vmem_bytes`` at
     this ``k8``, the gate the reference computes): one B1 launch per
     phase on its slices. The partials are added in phase order either
     way."""
@@ -369,7 +369,8 @@ def windowed_matmul_tmulti_phased(pair_block_ph, pair_chunk_ph, block_ptr_ph,
                              slabs, C=C, R=R, k8=k8, split=split)
     window_bytes = (min(chunks_per_phase, slabs.shape[0]) * k8 * slab_w
                     * slabs.element_size())
-    if force_streamed or window_bytes > RESIDENT_SLAB_VMEM_BYTES:
+    budget = dispatch_table(slabs.device).resident_slab_vmem_bytes
+    if force_streamed or window_bytes > budget:
         parts, bp_off = [], 0
         for off, n, chunk_lo, _, nb_ph in phases:
             parts.append(windowed_matmul_tmulti(

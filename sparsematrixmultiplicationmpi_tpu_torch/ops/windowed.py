@@ -13,11 +13,12 @@ tensor takes the plain path, a CUDA tensor the Hopper kernels of
 ``ops/cuda_windowed.py`` behind the reference's own routing gates (U>2
 transposed planes with ``R % 128`` -> B1, or B6 on a phase layout; U=2
 -> B3 for split f32 planes, else B4; ``k8 % 16`` for the fused chain
-state), with every unaligned ``k`` zero-padded to a multiple of 8. The
-reference sent a narrow unaligned ``k`` (``< KPAD_MIN_K``) to XLA's
-dense route instead; on the card that route would rebuild the dense
-tiles from the compact plane on every call, so the card pads it too (a
-divergence by design). A CPU tensor keeps the reference's routing.
+state), with an unaligned ``k`` zero-padded to a multiple of 8 from the
+dispatch table's ``kpad_min_k`` up (``formats/cost.py::dispatch_table``).
+The reference (its table's 12, which CPU tensors keep) sent a narrower
+unaligned ``k`` to XLA's dense route; on the card that route would
+rebuild the dense tiles from the compact plane on every call, and the
+H100 table pads every ``k`` (a divergence by design).
 
 Core functions live in the operand's padded permuted space
 (``WindowedPairs.encode``/``decode``).
@@ -27,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from ..formats.windowed import KPAD_MIN_K, WindowedPairs, dense_plane
+from ..formats.cost import dispatch_table
+from ..formats.windowed import WindowedPairs, dense_plane
 from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
@@ -112,12 +114,16 @@ def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
 def _takes_kernels(wp: WindowedPairs, k: int, device) -> bool:
     """Whether a width-``k`` product of ``wp`` on ``device`` takes the
     kernels' route (``k`` zero-padded to a multiple of 8) rather than the
-    plain gather path. On the card: every ``k``, for a U=2 operand and a
-    U>2 one with transposed planes and ``R % 128 == 0``. On the CPU,
-    where the route runs the kernels' plain versions (the transposed
-    chain), the reference's gate: ``k % 8 == 0`` or ``k >= KPAD_MIN_K``."""
+    plain gather path: ``k % 8 == 0`` or ``k`` at least the dispatch
+    table's ``kpad_min_k`` (the reference's 12 on the CPU, where the
+    route runs the kernels' plain versions, the transposed chain; 1 on a
+    CUDA device, whose padded kernels win at every k). On the card also
+    only a U=2 operand or a U>2 one with transposed planes and
+    ``R % 128 == 0``."""
+    if not (k % 8 == 0 or k >= dispatch_table(device).kpad_min_k):
+        return False
     if torch.device(device).type == "cpu":
-        return k % 8 == 0 or k >= KPAD_MIN_K
+        return True
     if wp.pairs_per_step > 2:
         return wp.tiles_t is not None and wp.block_rows % 128 == 0
     return True

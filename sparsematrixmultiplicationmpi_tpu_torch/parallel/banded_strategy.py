@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..formats.banded import BandedBlocks
+from ..formats.cost import cost_table_for
 from ..formats.matrix import COO, ELL, split_csr_by_width
 from ..ops.ell import take_rows
 from ..utils import collectives as coll
@@ -87,15 +88,18 @@ class BandedRowWise(Strategy):
         self.block_rows = block_rows
         self.format_kwargs = format_kwargs
 
-    def partition(self, csr, p: int) -> list:
+    def partition(self, csr, p: int, device=None) -> list:
         """Every rank's ``BandedRowOperand``, on the host (the JAX
-        package's ``prepare``, sharded)."""
+        package's ``prepare``, sharded), its band width priced by the
+        cost table of ``device`` (``format_kwargs``' ``cost_table`` when
+        given; the reference's without either)."""
         m, n = csr.shape
         if m != n:
             raise ValueError(
                 "banded_row_wise needs a square matrix (band structure is "
                 "defined relative to the diagonal)")
         kwargs = dict(self.format_kwargs)
+        kwargs["cost_table"] = cost_table_for(device, kwargs.get("cost_table"))
         if self.block_rows is not None:
             kwargs.setdefault("block_rows", self.block_rows)
         else:
@@ -145,7 +149,8 @@ class BandedRowWise(Strategy):
 
     def prepare(self, csr, mesh) -> BandedRowOperand:
         mesh = as_mesh(mesh)
-        return self.partition(csr, mesh.size)[mesh.rank].to(mesh)
+        return self.partition(csr, mesh.size, mesh.device)[
+            mesh.rank].to(mesh)
 
     def spmm(self, operand: BandedRowOperand, v, mesh=None, *,
              gather_result=True):

@@ -270,7 +270,8 @@ class ColumnWise(Strategy):
 
         mesh = as_mesh(mesh)
         return ReplicatedOperand(
-            auto_format(csr, **self.format_kwargs).to(mesh.device),
+            auto_format(csr, device=mesh.device,
+                        **self.format_kwargs).to(mesh.device),
             csr.shape, mesh)
 
     def spmm(self, operand, v, mesh=None, *, gather_result=True):
@@ -393,8 +394,10 @@ class Auto(Strategy):
     where it applies. A mesh of several ranks: the halo-exchange band
     strategy, the row-sharded windowed strategy or the hybrid row-wise
     strategy, picked by the single-chip cost model (``_mesh_route``).
-    ``spmm`` and ``chain_parts`` dispatch on the prepared operand's
-    type."""
+    Both price with the mesh device's cost table
+    (``formats/cost.py::cost_table_for``), or with ``cost_table=`` when
+    given. ``spmm`` and ``chain_parts`` dispatch on the prepared
+    operand's type."""
 
     name = "auto"
 
@@ -406,28 +409,33 @@ class Auto(Strategy):
 
         mesh = as_mesh(mesh)
         if mesh.size > 1:
-            return self._mesh_route(csr).prepare(csr, mesh)
-        return auto_format(csr, **self.format_kwargs).to(mesh.device)
+            return self._mesh_route(csr, mesh.device).prepare(csr, mesh)
+        return auto_format(csr, device=mesh.device,
+                           **self.format_kwargs).to(mesh.device)
 
-    def _mesh_route(self, csr: CSR) -> Strategy:
-        """The row-sharded strategy the single-chip cost model picks (the
-        JAX package's ``Auto._mesh_route``, same estimates, same pick):
-        every candidate shards output rows, so its compute estimate
-        divides ~uniformly by the rank count and the argmin does not
-        depend on it; the band and windowed strategies also move only
-        O(halo) bytes where the hybrid row strategy's ``psum_scatter``
-        moves O(m*k)."""
+    def _mesh_route(self, csr: CSR, device=None) -> Strategy:
+        """The row-sharded strategy the single-chip cost model picks, with
+        the table of ``device`` (the reference's without one: the JAX
+        package's ``Auto._mesh_route``, same estimates, same pick): every
+        candidate shards output rows, so its compute estimate divides
+        ~uniformly by the rank count and the argmin does not depend on
+        it; the band and windowed strategies also move only O(halo) bytes
+        where the hybrid row strategy's ``psum_scatter`` moves O(m*k)."""
         from ..formats.banded import BandedBlocks
+        from ..formats.cost import cost_table_for
         from ..formats.windowed import _search_tilings
         from ..ops.auto import gather_class_estimates
 
+        table = cost_table_for(device, self.format_kwargs.get("cost_table"))
         k_nominal = self.format_kwargs.get("k_nominal", 32)
-        gests = gather_class_estimates(csr, k_nominal=k_nominal)
+        gests = gather_class_estimates(csr, k_nominal=k_nominal,
+                                       cost_table=table)
         best_gather = min(e for e, _ in gests.values())
         m, n = csr.shape
         banded_est = float("inf")
         if m == n:  # the halo-exchange band strategy assumes square
-            bb = BandedBlocks.from_csr(csr, k_nominal=k_nominal)
+            bb = BandedBlocks.from_csr(csr, k_nominal=k_nominal,
+                                       cost_table=table)
             if bb is not None:
                 banded_est = bb.est_seconds
         windowed_est = float("inf")
@@ -435,17 +443,18 @@ class Auto(Strategy):
         found = _search_tilings(
             csr, np.asarray(coo.row_indices).astype(np.int64),
             np.asarray(coo.col_indices).astype(np.int64),
-            k_nominal=k_nominal, gather_baseline_s=best_gather)
+            k_nominal=k_nominal, gather_baseline_s=best_gather,
+            cost_table=table)
         if found is not None:
             windowed_est = found[0]
         if banded_est <= min(windowed_est, best_gather):
             from .banded_strategy import BandedRowWise
 
-            return BandedRowWise()
+            return BandedRowWise(cost_table=table)
         if windowed_est < best_gather:
             from .windowed_strategy import WindowedRowWise
 
-            return WindowedRowWise()
+            return WindowedRowWise(cost_table=table)
         return RowWise()
 
     def spmm(self, operand, v, mesh=None, *, gather_result=True):

@@ -42,10 +42,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..formats.cost import CostTable, cost_table_for
 from ..formats.matrix import COO, ELL, coalesce_coo, split_csr_by_width, \
     to_tensor
 from ..formats.windowed import (
-    PRODUCTION_PAIRS_PER_STEP, WindowedPairs, _split_planes, _tiles_t,
+    WindowedPairs, _split_planes, _tiles_t,
     build_dense_pairs, windowed_cost_estimate,
 )
 from ..ops.ell import take_rows
@@ -319,13 +320,14 @@ class WindowedRowWise(Strategy):
                  chunk_cols: Optional[int] = None,
                  reorder: str | None = "auto",
                  pairs_per_step: Optional[int] = None,
-                 input_mode: str = "auto"):
+                 input_mode: str = "auto",
+                 cost_table: Optional[CostTable] = None):
         self.block_rows = block_rows
         self.chunk_cols = chunk_cols
         self.reorder = reorder
-        if pairs_per_step is None:
-            pairs_per_step = PRODUCTION_PAIRS_PER_STEP
-        if not isinstance(pairs_per_step, int) or pairs_per_step < 2:
+        self.cost_table = cost_table
+        if pairs_per_step is not None and (
+                not isinstance(pairs_per_step, int) or pairs_per_step < 2):
             raise ValueError(
                 f"pairs_per_step must be an int >= 2, got {pairs_per_step}")
         self.pairs_per_step = pairs_per_step
@@ -333,12 +335,16 @@ class WindowedRowWise(Strategy):
             raise ValueError(f"unknown input_mode {input_mode!r}")
         self.input_mode = input_mode
 
-    def partition(self, csr, p: int) -> list:
+    def partition(self, csr, p: int, device=None) -> list:
         """Every rank's ``WindowedRowOperand``, on the host: the JAX
         package's ``prepare`` (RCM, tile shape, dense pairs, per-rank pad
-        contract, spill, tail and input mode), bit for bit."""
+        contract, spill, tail and input mode), bit for bit under the
+        reference's cost table. The tile shape, the dense/spill split and
+        the default U are priced by the table of ``device`` (this
+        strategy's ``cost_table`` when given)."""
         m, n = csr.shape
-        U = self.pairs_per_step
+        table = cost_table_for(device, self.cost_table)
+        U = self.pairs_per_step or table.production_pairs_per_step
         itemsize = np.asarray(csr.values).dtype.itemsize
 
         coo = csr.to_coo()
@@ -373,13 +379,15 @@ class WindowedRowWise(Strategy):
                 if R_c % 8 or R_c > max(m, 8):
                     continue
                 est, _, _, _, _ = windowed_cost_estimate(
-                    i, j, m, n, R_c, C_c, itemsize, pairs_per_step=U)
+                    i, j, m, n, R_c, C_c, itemsize, pairs_per_step=U,
+                    cost_table=table)
                 if best is None or est < best[0]:
                     best = (est, R_c, C_c)
             _, R, C = best
 
         pb, pc, tiles_raw, spill_idx = build_dense_pairs(
-            i, j, vals, m, n, R, C, itemsize, pairs_per_step=U)
+            i, j, vals, m, n, R, C, itemsize, pairs_per_step=U,
+            cost_table=table)
 
         # One per-rank row extent, a multiple of both R and C, so the
         # block grid (outputs) and the chunk grid (inputs) shard alike.
@@ -526,7 +534,8 @@ class WindowedRowWise(Strategy):
 
     def prepare(self, csr, mesh) -> WindowedRowOperand:
         mesh = as_mesh(mesh)
-        return self.partition(csr, mesh.size)[mesh.rank].to(mesh)
+        return self.partition(csr, mesh.size, mesh.device)[
+            mesh.rank].to(mesh)
 
     def spmm(self, operand, v, mesh=None, *, gather_result=True):
         """Full-semantics SpMM: encode, sharded multiply, decode. With

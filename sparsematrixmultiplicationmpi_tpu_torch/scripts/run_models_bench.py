@@ -8,27 +8,33 @@ PageRank (port of the JAX package's ``scripts/run_models_bench.py``).
   synthetic task, ``auto_format(k_nominal=128)``, Adam 1e-2, 20 steps
   timed after one;
 * CG: the 121,192-row SPD banded system (``bench/systems.py``), 8
-  right-hand sides, ``tol=1e-5``, best of 3 solves after one; on the
-  card the band kernel B5;
+  right-hand sides, ``auto_format(k_nominal=8)``, ``tol=1e-5``, best of
+  3 solves after one;
 * PageRank: ``cop20k_like(seed=4)`` with ``|values|``, column-normalised,
-  ``auto_format(k_nominal=1)`` (``WindowedPairs`` U = 16: on the card B2
-  then B1 at k = 1 zero-padded to 8), ``tol=1e-7``, best of 3 runs after
-  one, and the steady
-  per-iteration time as the slope between fixed 10- and 60-iteration
-  runs.
+  ``auto_format(k_nominal=1)``, ``tol=1e-7``, best of 3 runs after one,
+  and the steady per-iteration time as the slope between fixed 10- and
+  60-iteration runs.
+
+Each operand is priced for the run's device and for a caller that
+multiplies one-shot, as the three models do through ``spmm_any``
+(``auto_format(device=, one_shot=True)``: on the card the H100 cost
+table picks the route, and its kernels).
 
 Times are CUDA events on the card (the host clock on the CPU). Writes
 ``models_h100.json`` (``models_cpu.json`` for ``--device cpu``) under
 ``--out-dir`` with the JAX script's keys, ``"hardware"`` being the
 card's name and power limit from ``nvidia-smi``. Prints one JSON line of
-checks and launch counts; exits 1 when a check fails: a non-finite or
+checks (each model's route among them: its format and the kernels it
+launches on the card) and launch counts; exits 1 when a check fails: a non-finite or
 non-falling GCN loss, a CG solution whose true residual exceeds 1e-4 or
 that took more than ``max_iter`` iterations, PageRank ranks off a host
 float64 power iteration of the same length by more than the f32 tier
-(1e-4 of each rank) or not summing to 1, and on the card a B5 count other
-than the CG iterations + 1 or a B1 / B2 count other than one each a
-PageRank iteration. ``--scale`` shrinks the three problems for a quick
-run.
+(1e-4 of each rank) or not summing to 1, and on the card a route that
+launches no hand-written kernel (``route_kernels``: COO's), or kernel
+launches other than one multiply's of the route's kernels (each
+counted on one call, every one of them launched) a CG iteration, plus
+one, a PageRank iteration, or a GCN SpMM. ``--scale`` shrinks the three
+problems for a quick run.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ import numpy as np
 import torch
 
 from ..bench.systems import spd_banded_system
+from ..formats.banded import BandedBlocks
+from ..formats.cost import dispatch_table
+from ..formats.hub import HubExtracted
+from ..formats.matrix import BucketedELL
+from ..formats.windowed import WindowedPairs
 from ..io.generate import cop20k_like
 from ..models import (
     conjugate_gradient, init_gcn, make_train_step, normalize_adjacency,
@@ -56,7 +67,7 @@ from ..utils.timing import time_fn, time_region
 from . import _common
 
 __all__ = ["main", "gcn_bench", "cg_bench", "pagerank_bench",
-           "pagerank_host_f64", "hi_only"]
+           "pagerank_host_f64", "hi_only", "route_kernels"]
 
 #: PageRank's f32 tier against the host f64 iteration, per rank: above
 #: the split product's error and below that of the same iteration on the
@@ -64,6 +75,9 @@ __all__ = ["main", "gcn_bench", "cg_bench", "pagerank_bench",
 PAGERANK_RTOL = 1e-4
 #: CG's true-residual gate, relative to ``||b||``, in f64.
 CG_RESIDUAL_TOL = 1e-4
+#: The SpMMs of one two-layer GCN training step: one a layer forward,
+#: one a layer backward (``A^T = A``).
+GCN_SPMMS_PER_STEP = 4
 
 
 def _reset_counts() -> None:
@@ -76,20 +90,69 @@ def _counts() -> dict:
             **cuda_gather.launch_counts()}
 
 
+def _one_multiply(multiply, n: int, k: int, dev) -> dict:
+    """The kernels one multiply launches on its route."""
+    v = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    _reset_counts()
+    multiply(v)
+    return _counts()
+
+
+def route_kernels(operand, k: int) -> tuple:
+    """The hand-written kernels one width-``k`` multiply on ``operand``
+    launches on the card, by its dispatch (``formats/cost.py::
+    dispatch_table``): B2 and B1 (B6 on a phase layout; B3 or B4 at U = 2)
+    for windowed tiles, B5 for a band the kernel takes, B7 for bucketed
+    ELL and for a spill; none for COO."""
+    gates = dispatch_table("cuda")
+    b7 = ("B7",) if gates.spill_dma_gather and k <= 128 else ()
+    if isinstance(operand, HubExtracted):
+        return route_kernels(operand.remainder, k)
+    if isinstance(operand, BucketedELL):
+        return b7
+    spill = b7 if getattr(operand, "spill", None) is not None else ()
+    if isinstance(operand, BandedBlocks):
+        own = operand.block_rows <= gates.max_kernel_block_rows
+        return ("B5",) * own + spill
+    if isinstance(operand, WindowedPairs):
+        if operand.pairs_per_step > 2:
+            own = "B1" if operand.phases is None else "B6"
+        else:
+            own = "B3" if operand.split else "B4"
+        return ("B2", own) + spill
+    return ()
+
+
+def _route(operand, kernels: tuple) -> dict:
+    return {"format": type(operand).__name__, "kernels": list(kernels)}
+
+
+def _launched_per_multiply(launches: dict, per: dict, calls: int,
+                           route: tuple) -> bool:
+    """Whether the route launches kernels, one multiply launched each of
+    them, and ``launches`` is ``calls`` multiplies' kernels."""
+    return (bool(route) and all(per.get(name, 0) > 0 for name in route)
+            and all(launches[name] == per[name] * calls for name in per))
+
+
 def gcn_bench(dev: torch.device, n: int = 100_000):
-    """GCN training: ``(result, checks)``."""
+    """GCN training: ``(result, checks, launches)``."""
     f, h, c, steps = 64, 128, 16, 20
     adj, x, labels, mask = synthetic_node_classification(
         n, f, c, avg_degree=16, seed=1)
-    host = auto_format(normalize_adjacency(adj), k_nominal=128)
+    host = auto_format(normalize_adjacency(adj), device=dev, one_shot=True,
+                       k_nominal=128)
     operand = host.astype(torch.float32).to(dev)
     print(f"gcn operand: {type(operand).__name__}", flush=True)
+    per = _one_multiply(lambda v: spmm_any(operand, v), n, h, dev)
     spmm = make_symmetric_spmm(operand)
     params = init_gcn(f, h, c, generator=torch.Generator().manual_seed(0),
                       dtype=torch.float32, device=dev)
     step = make_train_step(spmm, torch.optim.Adam(params, lr=1e-2))
     x, labels, mask = (torch.from_numpy(a).to(dev) for a in (x, labels, mask))
+    _reset_counts()
     first = float(step(params, x, labels, mask))
+    launches = _counts()
     losses = []
     dt = time_region(lambda: losses.append(step(params, x, labels, mask)),
                      dev, n=steps) / steps
@@ -99,14 +162,22 @@ def gcn_bench(dev: torch.device, n: int = 100_000):
               "loss_finite": bool(np.isfinite(last))}
     checks = {"gcn_loss_finite": result["loss_finite"],
               "gcn_loss_falls": bool(last < first)}
+    route = route_kernels(operand, h)
+    checks["gcn_route"] = _route(operand, route)
+    if dev.type == "cuda":
+        # A training step's SpMMs (two layers, forward and backward)
+        # through the route's kernels.
+        checks["gcn_step_multiplies_launch_the_route"] = \
+            _launched_per_multiply(launches, per, GCN_SPMMS_PER_STEP, route)
     print(result, flush=True)
-    return result, checks
+    return result, checks, launches
 
 
 def cg_bench(dev: torch.device, m: int = 121_192):
     """CG on the SPD banded system: ``(result, checks, launches)``."""
     spd = spd_banded_system(m)
-    operand = auto_format(spd).to(dev)
+    operand = auto_format(spd, device=dev, one_shot=True,
+                          k_nominal=8).to(dev)
     print(f"cg operand: {type(operand).__name__}", flush=True)
     b_host = np.random.default_rng(3).normal(size=(m, 8)).astype(np.float32)
     b = torch.from_numpy(b_host).to(dev)
@@ -117,6 +188,7 @@ def cg_bench(dev: torch.device, m: int = 121_192):
                                   tol=1e-5, max_iter=max_iter)
 
     solve()  # warm-up
+    per = _one_multiply(lambda v: spmm_any(operand, v), m, 8, dev)
     _reset_counts()
     res = solve()
     launches = _counts()
@@ -125,14 +197,19 @@ def cg_bench(dev: torch.device, m: int = 121_192):
     x = res.x.detach().cpu().double().numpy()
     true_res = (np.linalg.norm(b_host - spmm_host_f64(spd, x))
                 / np.linalg.norm(b_host))
+    route = route_kernels(operand, 8)
     result = {"solve_ms": dt * 1e3, "iterations": iters,
               "ms_per_iteration": dt * 1e3 / max(iters, 1),
               "residual": float(res.residual_norm), "rhs_columns": 8}
     checks = {"cg_true_residual": float(true_res),
               "cg_converged": bool(iters < max_iter
-                                   and true_res <= CG_RESIDUAL_TOL)}
+                                   and true_res <= CG_RESIDUAL_TOL),
+              "cg_route": _route(operand, route)}
     if dev.type == "cuda":
-        checks["cg_b5_per_iteration"] = launches["B5"] == iters + 1
+        # One multiply an iteration and one for the initial residual,
+        # through the route's kernels.
+        checks["cg_one_multiply_per_iteration"] = _launched_per_multiply(
+            launches, per, iters + 1, route)
     print(result, flush=True)
     return result, checks, launches
 
@@ -166,7 +243,8 @@ def pagerank_bench(dev: torch.device, scale: float = 1.0):
     g = cop20k_like(scale=scale, seed=4)
     g = dataclasses.replace(g, values=np.abs(np.asarray(g.values)))
     norm = normalize_columns(g).astype(np.float32)
-    operand = auto_format(norm, k_nominal=1).to(dev)
+    operand = auto_format(norm, device=dev, one_shot=True,
+                          k_nominal=1).to(dev)
     n = norm.shape[0]
     print(f"pagerank operand: {type(operand).__name__}", flush=True)
 
@@ -175,6 +253,7 @@ def pagerank_bench(dev: torch.device, scale: float = 1.0):
                         max_iter=max_iter, dtype=torch.float32, device=dev)
 
     run(1e-7, 100)  # warm-up
+    per = _one_multiply(lambda v: spmm_any(operand, v), n, 1, dev)
     _reset_counts()
     r, it = run(1e-7, 100)
     launches = _counts()
@@ -191,16 +270,18 @@ def pagerank_bench(dev: torch.device, scale: float = 1.0):
     ref = pagerank_host_f64(norm, it)
     got = r.detach().cpu().double().numpy()
     rel = float(np.max(np.abs(got - ref) / ref))
+    route = route_kernels(operand, 1)
     result = {"total_ms": dt * 1e3, "iterations": it,
               "ms_per_iteration_steady": per_iter_ms,
               "dispatch_overhead_ms": t10 * 1e3 - 10 * per_iter_ms,
               "rank_sum": s}
     checks = {"pagerank_max_rel_err": rel,
               "pagerank_matches_f64": bool(rel <= PAGERANK_RTOL),
-              "pagerank_sums_to_one": bool(abs(s - 1.0) <= 1e-4)}
+              "pagerank_sums_to_one": bool(abs(s - 1.0) <= 1e-4),
+              "pagerank_route": _route(operand, route)}
     if dev.type == "cuda":
-        checks["pagerank_one_b1_b2_per_iteration"] = (
-            launches["B1"] == launches["B2"] == it)
+        checks["pagerank_one_multiply_per_iteration"] = (
+            _launched_per_multiply(launches, per, it, route))
     print(result, flush=True)
     return result, checks, launches
 
@@ -219,7 +300,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     results, checks, launches = {}, {}, {}
-    results["gcn_train_100k_nodes"], c = gcn_bench(
+    results["gcn_train_100k_nodes"], c, launches["gcn_step"] = gcn_bench(
         dev, int(100_000 * args.scale))
     checks.update(c)
     results["cg_solve_121k"], c, launches["cg_solve"] = cg_bench(

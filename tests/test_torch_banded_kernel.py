@@ -208,6 +208,10 @@ def test_spmm_any_band_routes(monkeypatch):
     TA.spmm_any(wide, cuda_v)
     TA.spmm_any(narrow, cpu_v)
     assert calls == [("B5", 128), ("plain", 256), ("plain", 128)]
+    # B5 takes every width of the fat vector.
+    TA.spmm_any(narrow, types.SimpleNamespace(
+        device=torch.device("cuda", 0), shape=(4, 32)))
+    assert calls[-1] == ("B5", 128)
     with pytest.raises(ValueError, match="no band route"):
         TA.spmm_any(wide, torch.empty((4, 2), device="meta"))
 
