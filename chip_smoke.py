@@ -36,8 +36,14 @@ on the card routes by the card's dispatch gates
 5. solver path: the JAX package's model-benchmark CG system
    (``spd_banded_system(121,192)``, f32, 8 right-hand sides) through
    ``Auto(k_nominal=8)`` -> ``BandedBlocks`` (r = 128, no spill, 947
-   blocks) -> kernel B5. B5 against its plain version at k = 1, 8, 32
-   and on a spill operand (``1e-5 * cond + 1e-6``), a one-shot
+   blocks) -> kernel B5. ``band_kernel``'s ``-Xptxas -v`` lines; B5
+   against its plain version (``1e-5 * cond + 1e-6``, plus one bf16 ulp
+   for a bf16 band) at k = 1, 8, 32 and 128 in f32 and k = 32 in bf16,
+   each timed beside its bound (bytes, or its 3xTF32 / bf16 products on
+   the tensor cores), its plain version, ``spmm_banded`` (the batched
+   matmuls) and ``torch.sparse.mm`` on the band's nonzeros (B5 must beat
+   the last two at k = 32 and take at most 0.100 ms at k = 8), and on a
+   spill operand; a one-shot
    ``spmm_any`` against the f64 oracle, then ``conjugate_gradient(tol=
    1e-5)`` with the counts zeroed: B5 launches = iterations + 1, true
    residual <= 1e-4, ``x`` within 5e-3 of a host f64 ``spsolve``, the
@@ -228,6 +234,9 @@ B1_RTOL, B1_ATOL = 1e-5, 1e-6
 B5_SRC = "sparsematrixmultiplicationmpi_tpu_torch/csrc/banded_kernels.cu"
 B5_REPLACES = "sparsematrixmultiplicationmpi_tpu/ops/pallas_banded.py:31"
 M_SPD, K_CG = 121_192, 8
+#: (dtype name, k) at which phase 5 checks and times B5 on the CG band.
+B5_WIDTHS = (("float32", 1), ("float32", K_CG), ("float32", 32),
+             ("float32", 128), ("bfloat16", 32))
 #: Fixed-length CG solves for the per-iteration slope. Past ~20
 #: iterations the recursive residual of this well-conditioned system
 #: underflows to zero in f32 and a tol = 0 solve stops, so both lengths
@@ -524,6 +533,24 @@ def band_spill_case(dev):
     return err
 
 
+def band_ptxas() -> str:
+    """``-Xptxas -v``'s lines for B5's ``band_kernel`` (registers, stack,
+    spills, static shared memory), from this process's build."""
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import _kernel_lib
+
+    lines = _kernel_lib.build_info.get("ptxas", "").splitlines()
+    out = []
+    for j, line in enumerate(lines):
+        if "band_kernel" in line and "Compiling entry" in line:
+            out.append(line)
+            for nxt in lines[j + 1: j + 4]:
+                if "Compiling entry" in nxt:
+                    break
+                out.append(nxt)
+    return "B5 ptxas:\n" + ("\n".join(out) or "(no band_kernel lines: "
+                             f"{_kernel_lib.build_info.get('ptxas')!r})")
+
+
 def spsolve_f64(csr, b):
     """Host float64 direct solve of ``csr x = b`` (duplicates summed)."""
     import scipy.sparse
@@ -558,7 +585,9 @@ def solver_phase(dev, power):
     from sparsematrixmultiplicationmpi_tpu_torch.models import (
         conjugate_gradient,
     )
-    from sparsematrixmultiplicationmpi_tpu_torch.ops import cuda_banded as cb
+    from sparsematrixmultiplicationmpi_tpu_torch.ops import (
+        _kernel_lib, cuda_banded as cb,
+    )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import spmm_any
     from sparsematrixmultiplicationmpi_tpu_torch.ops.banded import (
         spmm_banded,
@@ -589,38 +618,70 @@ def solver_phase(dev, power):
           f"unexpected solver route {route}")
     m = spd.shape[0]
 
-    # 5.2 B5 against its plain version
-    errs, ms = [], {}
-    for k in (1, K_CG, 32):
+    # 5.2 B5 against its plain version and timed, at the widths around
+    # its column chunk: f32 at k = 1, 8, 32 and 128, bf16 at k = 32
+    print(band_ptxas())
+    # The band's nonzeros: band[b, i, w] is A[b*r + i, (b-1)*r + w].
+    _, r, _ = op.band.shape
+    bi, i, w = torch.nonzero(op.band, as_tuple=True)
+    rows, cols = bi * r + i, (bi - 1) * r + w
+    keep = (rows < m) & (cols >= 0) & (cols < m)
+    nz_rows, nz_cols, nz_vals = rows[keep], cols[keep], op.band[bi, i, w][keep]
+    del bi, i, w, rows, cols, keep
+    errs, widths, ms = [], [], {}
+    for name, k in B5_WIDTHS:
+        dtype = getattr(torch, name)
+        f32 = dtype == torch.float32
+        band = op.band.to(dtype)
+        op_d = dataclasses.replace(op, band=band)
         v = torch.from_numpy(generate_fat_vector(m, k, seed=k).astype(
-            np.float32)).to(dev)
-        got = cb.band_matmul(op.band, v, m=m)
-        want = cb.band_matmul_plain(op.band, v, m=m)
-        cond = cb.band_matmul_plain(op.band.abs(), v.abs(), m=m)
-        excess, err = b1_error(got, want, cond)
-        print(f"B5 band_matmul band {tuple(op.band.shape)} k={k} "
-              f"max_abs_err={err} tolerance_excess={excess}")
+            np.float32)).to(dev, dtype)
+        got = cb.band_matmul(band, v, m=m)
+        want = cb.band_matmul_plain(band, v, m=m)
+        cond = cb.band_matmul_plain(band.float().abs(), v.float().abs(), m=m)
+        diff = (got.float() - want.float()).abs()
+        # Both sum f32 products in another order; a bf16 result is rounded
+        # once on each side, one bf16 ulp apart at most.
+        tol = B1_RTOL * cond + B1_ATOL
+        if not f32:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        excess, err = float((diff - tol).max()), float(diff.max())
+        del got, want, cond, diff, tol
+        a_csr = sparse_csr(nz_rows, nz_cols, nz_vals.to(dtype), (m, m))
+        nums = {"dtype": str(dtype).split(".")[-1], "k": k,
+                "max_abs_err": err, "tolerance_excess": excess,
+                "ms": cuda_ms(lambda: cb.band_matmul(band, v, m=m), 200),
+                "plain_ms": cuda_ms(lambda: cb.band_matmul_plain(
+                    band, v, m=m), 50),
+                "spmm_banded_ms": cuda_ms(lambda: spmm_banded(op_d, v), 50),
+                # band, v and the output; f32 products in 3xTF32 (three
+                # TF32 products each) on the tensor cores, bf16 in bf16.
+                **bound(nbytes(band, v) + m * k * band.element_size(),
+                        (3 if f32 else 1) * 2 * band.numel() * k,
+                        "tf32" if f32 else "bf16"),
+                "library_ms": library_ms(f"B5 {dtype} k={k}", a_csr, v, 200),
+                "smem_bytes": _kernel_lib.load_library().band_smem(
+                    r, k, cb.BAND_K_CHUNK, 0 if f32 else 1)}
+        nums["bound_share"] = nums["bound_ms"] / nums["ms"]
+        del a_csr, op_d, band, v
+        print(f"B5 band_matmul band {tuple(op.band.shape)} "
+              f"{json.dumps(nums)}")
         check(excess <= 0, f"B5 outside tolerance of its plain version, "
-              f"k={k}")
-        errs.append(err)
-        if k == K_CG:
-            # The band's nonzeros: band[b, i, w] is A[b*r + i, (b-1)*r + w].
-            nbk, r, _ = op.band.shape
-            bi, i, w = torch.nonzero(op.band, as_tuple=True)
-            rows, cols = bi * r + i, (bi - 1) * r + w
-            keep = (rows < m) & (cols >= 0) & (cols < m)
-            a_csr = sparse_csr(rows[keep], cols[keep],
-                               op.band[bi, i, w][keep], (m, m))
-            ms = {"ms": cuda_ms(lambda: cb.band_matmul(op.band, v, m=m), 200),
-                  "plain_ms": cuda_ms(lambda: cb.band_matmul_plain(
-                      op.band, v, m=m), 50),
-                  # band, v and the output; the band's FMAs on the CUDA
-                  # cores.
-                  **bound(nbytes(op.band, v) + m * k * 4,
-                          2 * op.band.numel() * k, "f32"),
-                  "library_ms": library_ms("B5", a_csr, v, 200)}
-            del a_csr
-        del got, want, cond
+              f"{dtype} k={k}")
+        if f32:  # the entry's error; a bf16 width's is in its own row
+            errs.append(err)
+        widths.append(nums)
+        if f32 and k == K_CG:
+            ms = {key: nums[key] for key in ENTRY_KEYS[1:]}
+    del nz_rows, nz_cols, nz_vals
+    by = {(x["dtype"], x["k"]): x for x in widths}
+    k32 = by["float32", 32]
+    check(k32["ms"] < k32["spmm_banded_ms"] and k32["ms"] < k32["library_ms"],
+          f"B5 at k = 32 ({k32['ms']} ms) not faster than spmm_banded "
+          f"({k32['spmm_banded_ms']}) and torch.sparse.mm "
+          f"({k32['library_ms']})")
+    check(by["float32", K_CG]["ms"] <= 0.100,
+          f"B5 at k = {K_CG} took {by['float32', K_CG]['ms']} ms > 0.100")
     errs.append(band_spill_case(dev))
     band_bytes = op.band.numel() * op.band.element_size()
     print(f"B5 k={K_CG}: {ms['ms']} ms ({band_bytes / ms['ms'] / 1e9:.3f} "
@@ -718,7 +779,7 @@ def solver_phase(dev, power):
     check(rec.correct is True, "amortized band SpMM disagrees with oracle")
     check(ms_per_iter > 0, "CG per-iteration slope did not resolve")
     return entry("B5", "band_matmul", B5_SRC, B5_REPLACES, launches,
-                 {"max_abs_err": max(errs), **ms})
+                 {"max_abs_err": max(errs), **ms}, widths=widths)
 
 
 def counted_auto(**format_kwargs):

@@ -137,10 +137,11 @@ class BandedBlocks:
         model (dense-band streaming at ``hbm_bw``, once per the table's
         ``band_k_cols`` columns of a ``k_nominal``-wide vector where the
         band kernel takes the band, + spilled rows at the per-row gather
-        cost; both default to ``cost_table``'s, the reference's table by
-        default: its rate of the band's route, ``_band_stream_s``). Returns ``None`` when every
-        candidate loses to the pure gather path or violates
-        ``min_coverage`` / ``max_inflation``."""
+        cost and a spilled route's fixed ``band_spill_s``; both rates
+        default to ``cost_table``'s, the reference's table by default:
+        its rate of the band's route, ``_band_stream_s``). Returns
+        ``None`` when every candidate loses to the pure gather path or
+        violates ``min_coverage`` / ``max_inflation``."""
         t = cost_table_for(None, cost_table)
         if gather_ns_per_row is None:
             gather_ns_per_row = t.gather_s_per_row * 1e9
@@ -166,8 +167,8 @@ class BandedBlocks:
                         "ell", int(spill_nnz * 1.6), m, k_nominal, t))
                 est = (_band_stream_s(t, r, k_nominal, dense_bytes, hbm_bw)
                        + spill_s
-                       + (m * t.spill_restore_s_per_row if cov < 1.0
-                          else 0.0))
+                       + (m * t.spill_restore_s_per_row + t.band_spill_s
+                          if cov < 1.0 else 0.0))
                 if (cov >= min_coverage and dense_bytes <= max_inflation * vb
                         and est < gather_time):
                     if best is None or est < best[0]:
@@ -213,7 +214,8 @@ class BandedBlocks:
         est = (_band_stream_s(t, r, k_nominal, band.nbytes)
                + 4 * m * row_bytes / t.hbm_bw
                + spill_s
-               + (m * t.spill_restore_s_per_row if n_out else 0.0))
+               + (m * t.spill_restore_s_per_row + t.band_spill_s if n_out
+                  else 0.0))
         if t.call_s:
             est += t.call_s
         return cls(band=band, spill=spill, shape=(m, n), block_rows=r,

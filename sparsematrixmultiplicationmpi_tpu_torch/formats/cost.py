@@ -119,6 +119,9 @@ class CostTable:
     call_s: float = 0.0
     #: Fixed seconds the hub route adds to its remainder's.
     hub_s: float = 0.0
+    #: Fixed seconds a spilled band's route (the band kernel, then the
+    #: spill's gather and restore) adds beyond its priced terms.
+    band_spill_s: float = 0.0
     #: Fixed seconds a one-shot windowed multiply (``spmm_any``: encode,
     #: body, decode) adds to one body of a chain; priced only for a
     #: caller that multiplies one-shot (``auto_format(one_shot=True)``).
@@ -231,12 +234,14 @@ H100 = CostTable(
     # (spill_gather.json).
     spill_dma_gather=True,
     # exp_auto_threshold: the widest block_rows at which B5 beats
-    # spmm_banded at k = 1 (auto_threshold.json); B5 takes every width.
+    # spmm_banded at k = 1 (auto_threshold.json); B5 takes every width,
+    # and beats spmm_banded at each one probed (1 to 128).
     max_kernel_block_rows=128,
-    # B5's design: a CTA holds 8 columns of the fat vector and streams
-    # its band block, so a width-k multiply reads the band ceil(k/8)
-    # times (csrc/banded_kernels.cu, kBandKT).
-    band_k_cols=8,
+    # B5's design: a CTA holds BAND_K_CHUNK = 128 columns of the fat
+    # vector and streams its band block once, so a width-k multiply reads
+    # the band ceil(k/128) times (ops/cuda_banded.py, passed to
+    # csrc/banded_kernels.cu as kc).
+    band_k_cols=128,
     # fit_probe17: the compact kernels' CTA model (probe17_fit.json).
     compact_tiles=True,
     entry_s=3.35146343692722e-08,
@@ -245,17 +250,22 @@ H100 = CostTable(
     call_s=3.145738202656533e-05,
     # exp_auto_threshold: the rates at which the band estimate gives the
     # measured times of spill-free bands: B5's chain bodies on the CG
-    # system, the band read ceil(k/8) times, and spmm_banded's past the
-    # gate (auto_threshold.json).
-    band_bw=3071808509046.5947,
-    band_matmul_bw=1878401347993.3938,
+    # system at k = 1, 8, 32 (the band read once; beside call_s, so above
+    # the copy rate), and spmm_banded's past the gate
+    # (auto_threshold.json).
+    band_bw=4212681375857.8315,
+    band_matmul_bw=1777546465451.2437,
     # exp_hub_dc1: what the hub route adds to its remainder beyond the
     # priced bytes (hub_dc1.json).
     hub_s=2.1645098359274878e-05,
+    # exp_auto_threshold: what a spilled band through B5 measures beyond
+    # its estimate's other terms, the median over the gate's spilled
+    # bands (auto_threshold.json).
+    band_spill_s=2.3087655787391544e-05,
     # exp_auto_threshold: a one-shot windowed multiply less its chain
     # body, the median over the CG system and cop20k at k = 1, 8, 32
     # (auto_threshold.json).
-    one_shot_s=0.0001510671973228454,
+    one_shot_s=0.00015074400901794434,
 )
 
 def cost_table_for(device=None, cost_table: Optional[CostTable] = None

@@ -126,8 +126,10 @@ def load_library() -> ctypes.CDLL:
         lib.chunk_slabs_launch.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
         lib.chunk_slabs_launch.restype = i32
         lib.band_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                    i32, ptr]
+                                    i32, i32, ptr]
         lib.band_launch.restype = i32
+        lib.band_smem.argtypes = [i32, i32, i32, i32]
+        lib.band_smem.restype = i32
         lib.tmulti_phased_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr,
                                              ptr, ptr, i32, ptr, ptr, i32,
                                              i32, i32, i32, i32, ptr]

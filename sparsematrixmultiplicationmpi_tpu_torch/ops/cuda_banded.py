@@ -6,9 +6,15 @@ row block ``b`` of ``r`` rows, with rows of ``v`` outside ``[0, n)`` counted
 as zero, from ``csrc/banded_kernels.cu`` (``_band_kernel`` on the TPU). It
 takes ``v`` in its natural ``(n, k)`` layout and any ``k >= 1``: the TPU
 kernel's transposed, padded copy of ``v`` and its ``k % 8`` padding were
-Mosaic layout rules. A CPU tensor takes ``band_matmul_plain``; a CUDA
-tensor the kernel, with no fallback from one to the other. Launches are
-counted in ``band_matmul.launches``.
+Mosaic layout rules. The kernel streams each row block's band once per
+``BAND_K_CHUNK`` columns of ``v`` through a shared-memory ring and
+multiplies on the tensor cores: a bf16 band in bf16 products summed in
+f32, an f32 band in 3xTF32 (each operand split into a TF32 part and the
+rest, read as TF32, the small x small product dropped: about 2**-20
+relative per product, inside the f32 tier of ``utils/compare.py``). A
+CPU tensor takes ``band_matmul_plain``; a CUDA tensor the kernel, with
+no fallback from one to the other. Launches are counted in
+``band_matmul.launches``.
 
 ``spmm_banded_cuda`` is ``spmm_banded_pallas``: B5, then the spill through
 ``spmm_bucketed``. Like the reference's kernel route it casts ``v`` to the
@@ -25,12 +31,17 @@ from .cuda_windowed import _on_kernel_device, _require, _stream
 from .ell import spmm_bucketed
 
 __all__ = ["band_matmul", "band_matmul_plain", "spmm_banded_cuda",
-           "launch_counts", "reset_launch_counts", "MAX_KERNEL_BLOCK_ROWS"]
+           "launch_counts", "reset_launch_counts", "MAX_KERNEL_BLOCK_ROWS",
+           "BAND_K_CHUNK"]
 
-#: The widest band B5 takes (its design: the CTA's shared window of v is
-#: sized for ``3 * 128`` rows, ``kBandMaxR``). Which bands ``spmm_any``
-#: sends to it is the cost table's gate (``formats/cost.py``).
+#: The widest band B5 takes (its design: a CTA's ring holds at most 128
+#: band rows, ``kBandMaxR``). Which bands ``spmm_any`` sends to it is the
+#: cost table's gate (``formats/cost.py``).
 MAX_KERNEL_BLOCK_ROWS = 128
+#: The columns of ``v`` one CTA of B5 holds (``band_launch``'s ``kc``, at
+#: most the kernel's 128): a width-``k`` multiply reads the band
+#: ``ceil(k / BAND_K_CHUNK)`` times. The H100 cost table's ``band_k_cols``.
+BAND_K_CHUNK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -82,14 +93,14 @@ def band_matmul(band: torch.Tensor, v: torch.Tensor, *,
              f"band_matmul kernel needs r % 8 == 0 and r <= "
              f"{MAX_KERNEL_BLOCK_ROWS}, got r={r}")
     _require(band.data_ptr() % 16 == 0, "band must be 16-byte aligned")
-    _require(max(n, k, nb * -(-k // 8)) < 2 ** 31,
+    _require(max(n, k, nb * -(-k // BAND_K_CHUNK)) < 2 ** 31,
              f"band_matmul kernel: n={n}, k={k}, nb={nb} exceed its 32-bit "
              "sizes")
     out = torch.empty((m, k), dtype=band.dtype, device=band.device)
     if out.numel():
         err = load_library().band_launch(
             band.data_ptr(), v.data_ptr(), out.data_ptr(), nb, r, m, n, k,
-            _DTYPE_CODES[band.dtype], _stream(band))
+            BAND_K_CHUNK, _DTYPE_CODES[band.dtype], _stream(band))
         check_launch("band_matmul", err)
         band_matmul.launches += 1
     return out

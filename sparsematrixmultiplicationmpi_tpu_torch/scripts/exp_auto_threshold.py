@@ -7,18 +7,21 @@
 The port's counterpart of the JAX package's
 ``scripts/exp_auto_threshold_tpu.py``. Part one: the results sweep's
 ``fem_banded_100k`` built as ``BandedBlocks`` at block_rows 128, 256 and
-512, each multiplied at k in (1, 8, 16, 32) through the band kernel B5
-(which takes block_rows <= 128) and through ``spmm_banded`` (batched
+512, each multiplied at k in (1, 8, 16, 32, 128) through the band kernel
+B5 (which takes block_rows <= 128) and through ``spmm_banded`` (batched
 matmuls), checked against the f64 oracle and timed with CUDA events in
 turns. ``max_kernel_block_rows`` is the widest block_rows at which B5
 beats ``spmm_banded`` at k = 1 (0 if it never does); B5 then takes
 every width there (``b5_loses_at_k`` lists the widths at which it is
-the slower: a CTA holds 8 columns and re-reads its band block for each
-8, where the matmuls read the band once). ``band_matmul_bw`` is the
-rate the band estimate (``formats/banded.py``) needs to give the
-matmuls' times on the spill-free builds past the gate: the band's bytes
+the slower: B5 reads its band once per ``BAND_K_CHUNK`` columns, the
+matmuls once). ``band_matmul_bw`` is the rate the band estimate
+(``formats/banded.py``) needs to give the matmuls' times on the
+spill-free builds past the gate: the band's bytes
 over the time less the estimate's other terms (the table's ``call_s``
 and the output's bytes), the median over builds and widths.
+``band_spill_s`` is what B5's spilled builds at the gate measure beyond
+their estimate without it (the spill's gather and restore launch
+whatever the spill's size), the median over their widths.
 
 Part two, one-shot callers (``auto_format(one_shot=True)``): on the
 models benchmark's CG system and the cop20k stand-in at k in (1, 8,
@@ -51,7 +54,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..bench.systems import spd_banded_system
-from ..formats.banded import BandedBlocks, _band_passes, band_coverage
+from ..formats.banded import (
+    BandedBlocks, _band_passes, _band_stream_s, band_coverage,
+)
 from ..formats.cost import H100, cost_table_for
 from ..formats.matrix import CSR
 from ..io.generate import banded_csr, random_csr
@@ -60,7 +65,7 @@ from ..ops.banded import spmm_banded
 from . import _probe
 
 BLOCK_ROWS = (128, 256, 512)
-GATE_KS = (1, 8, 16, 32)
+GATE_KS = (1, 8, 16, 32, 128)
 M = 30_000
 K = 32
 FRACS = (0.0, 0.1, 0.25, 0.4, 0.55, 0.75)
@@ -78,6 +83,16 @@ def mixed_csr(off_band_frac: float, seed: int = 0, m: int = M) -> CSR:
             for x in (base, rnd))
     s = (a + b).tocsr()
     return CSR.from_arrays(s.data, s.indices, s.indptr, base.shape)
+
+
+def _priced_rest(csr, r: int, k: int) -> float:
+    """The H100 band estimate of ``csr`` at ``block_rows = r``, width
+    ``k``, less its band stream and ``band_spill_s``: the terms (fixed
+    call, output, spill) that ``band_spill_s`` is fitted beside."""
+    table = dataclasses.replace(H100, band_spill_s=0.0)
+    bb = BandedBlocks.from_csr(csr, block_rows=r, k_nominal=k,
+                               cost_table=table)
+    return bb.est_seconds - _band_stream_s(table, r, k, bb.dense_bytes)
 
 
 def band_gate(scale: float, dev) -> list:
@@ -102,6 +117,8 @@ def band_gate(scale: float, dev) -> list:
                    "m": csr.shape[0], "spill": bb.spill is not None,
                    **dict(zip(routes, _probe.seconds_each(
                        list(routes.values()), dev)))}
+            if "b5_s" in row and row["spill"]:
+                row["priced_rest_s"] = _priced_rest(csr, r, k)
             rows.append(row)
             print(f"band r={r} k={k}: " + ", ".join(
                 f"{key} {row[key] * 1e3:.4f} ms"
@@ -136,6 +153,13 @@ def gate_decision(rows, shots=()) -> dict:
         out["band_matmul_bw"] = float(np.median(matmul))
     if kernel:
         out["band_bw"] = float(np.median(kernel))
+        table = dataclasses.replace(table, band_bw=out["band_bw"])
+        spilled = [x["b5_s"] - _band_stream_s(table, x["block_rows"], x["k"],
+                                             x["band_bytes"])
+                   - x["priced_rest_s"] for x in rows
+                   if "priced_rest_s" in x and x["block_rows"] <= gate]
+        if spilled:
+            out["band_spill_s"] = float(np.median(spilled))
     return out
 
 
@@ -279,7 +303,8 @@ def main(argv=None) -> int:
     out.update(one_shot_decision(shots))
     print({key: out.get(key) for key in (
         "max_kernel_block_rows", "b5_loses_at_k", "band_bw",
-        "band_matmul_bw", "one_shot_s", "model_argmin_matches")})
+        "band_matmul_bw", "band_spill_s", "one_shot_s",
+        "model_argmin_matches")})
     _probe.write(args, "auto_threshold", out)
     return 0
 

@@ -85,6 +85,59 @@ def test_plain_band_matmul_matches_jax_interpret(r, k, dtype):
     assert torch.equal(cut, got[: nb * r - 3])
 
 
+# ---- B5 f32's 3xTF32 products, emulated ----------------------------------
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: ``cvt.rna.tf32.f32``. Adding half an ulp to the magnitude bits
+    of a sign-magnitude float and truncating rounds half away."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor core reads from an f32 operand: its top
+    19 bits, the low 13 mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_band_products(band, v, *, passes):
+    """B5 f32's contraction with TF32 operands: ``passes=3`` is the
+    kernel's 3xTF32 (small.big + big.small + big.big, big = rna(x),
+    small = x - big as the tensor core reads it), ``passes=1`` one TF32
+    product. TF32 x TF32 products are exact in f32; the sums are f32."""
+    bb, vb = _rna_tf32(band), _rna_tf32(v)
+    out = cb.band_matmul_plain(bb, vb)
+    if passes == 3:
+        bs, vs = _trunc_tf32(band - bb), _trunc_tf32(v - vb)
+        out = (cb.band_matmul_plain(bs, vb) + cb.band_matmul_plain(bb, vs)
+               + out)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 6, 8, 32])
+@pytest.mark.parametrize("r", [8, 128])
+def test_3xtf32_band_products_hold_the_f32_tier(r, k):
+    """The precision argument of B5 f32 on the tensor cores, where there
+    is no card: on full-mantissa bands and vectors the 3xTF32 contraction
+    stays within ``1e-5 * cond + 1e-6`` of the f64 product, and a single
+    TF32 product does not."""
+    nb = 3
+    band = torch.from_numpy(_band(nb, r, seed=r + k, density=0.5))
+    n = nb * r - 5
+    v = torch.from_numpy(np.random.default_rng(k).uniform(
+        -1, 1, (n, k)).astype(np.float32))
+    assert (band != _rna_tf32(band)).any() and (v != _rna_tf32(v)).any()
+    exact = cb.band_matmul_plain(band.double(), v.double())
+    cond = cb.band_matmul_plain(band.double().abs(), v.double().abs())
+    bound = RTOL * cond + ATOL
+    three = _tf32_band_products(band, v, passes=3)
+    assert three.dtype == torch.float32
+    assert bool(((three.double() - exact).abs() <= bound).all())
+    one = _tf32_band_products(band, v, passes=1)
+    assert not bool(((one.double() - exact).abs() <= bound).all())
+
+
 def _families():
     def spill(g, csr_cls):
         b = g.banded_csr(200, 4, 3, seed=133)

@@ -8,10 +8,12 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from sparsematrixmultiplicationmpi_tpu_torch.formats import _gather_calib_h100
+from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import _band_passes
 from sparsematrixmultiplicationmpi_tpu_torch.formats.cost import H100
 from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
     _common, check_cost_constants, exp_auto_threshold, exp_gather_calib3,
@@ -106,7 +108,7 @@ def test_auto_threshold_on_the_cpu(tmp_path):
 def test_auto_threshold_decisions():
     rows = [{"block_rows": r, "k": k, "band_bytes": 8.0 * r, "m": 0,
              "spill": r == 128, "banded_s": 1.0,
-             **({"b5_s": b5} if r <= 128 else {})}
+             **({"b5_s": b5, "priced_rest_s": 0.1} if r <= 128 else {})}
             for r, k, b5 in ((128, 1, 0.5), (128, 32, 2.0), (256, 1, None),
                              (512, 1, None))]
     shots = [{"class": "banded", "block_rows": 128, "spill": False,
@@ -117,10 +119,17 @@ def test_auto_threshold_decisions():
     assert got["b5_loses_at_k"] == [32]
     call = H100.call_s
     # The matmuls' rate over the spill-free builds past the gate; B5's
-    # over its chain bodies, the band read once per 8 columns.
+    # over its chain bodies, the band read once per band_k_cols columns.
     assert got["band_matmul_bw"] == pytest.approx(
         (2048 / (1.0 - call) + 4096 / (1.0 - call)) / 2)
-    assert got["band_bw"] == pytest.approx(1024 / (1.0 - call))
+    assert got["band_bw"] == pytest.approx(np.median(
+        [1024 * _band_passes(H100, 128, x["k"]) / (x["body_s"] - call)
+         for x in shots]))
+    # What the spilled B5 rows measure beyond the band at that rate and
+    # their other priced terms.
+    assert got["band_spill_s"] == pytest.approx(np.median(
+        [x["b5_s"] - 1024 * _band_passes(H100, 128, x["k"])
+         / got["band_bw"] - 0.1 for x in rows if "b5_s" in x]))
     shots = [{"class": c, "one_shot_s": a, "body_s": b}
              for c, a, b in (("windowed", 3.0, 1.0), ("windowed", 2.0, 1.5),
                              ("windowed", 4.0, 1.0), ("banded", 9.0, 1.0))]
@@ -178,6 +187,9 @@ def test_h100_gates_are_the_probes_decisions():
     thr = _card("auto_threshold")
     assert H100.max_kernel_block_rows == thr["max_kernel_block_rows"]
     assert H100.band_bw == pytest.approx(thr["band_bw"], rel=1e-3)
+    assert H100.band_spill_s == pytest.approx(thr["band_spill_s"],
+                                              rel=1e-3)
+    assert thr["b5_loses_at_k"] == []
     assert H100.one_shot_s == pytest.approx(thr["one_shot_s"], rel=1e-3)
     assert H100.hub_s == pytest.approx(_card("hub_dc1")["hub_s"], rel=1e-3,
                                        abs=1e-9)

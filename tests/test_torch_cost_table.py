@@ -117,6 +117,42 @@ def test_v5e_gather_records_and_structure_are_the_references():
         0, None, 0.0)
 
 
+def test_h100_band_chunk_is_the_kernels():
+    """The H100 table prices the band kernel's column chunk: the wrapper
+    passes ``BAND_K_CHUNK`` to ``band_launch``, the table reads the band
+    once per that many columns."""
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.cuda_banded import (
+        BAND_K_CHUNK, MAX_KERNEL_BLOCK_ROWS,
+    )
+
+    assert H100.band_k_cols == BAND_K_CHUNK
+    assert H100.max_kernel_block_rows <= MAX_KERNEL_BLOCK_ROWS
+
+
+@pytest.mark.parametrize("k,passes", [(1, 1), (8, 1), (32, 1), (127, 1),
+                                      (128, 1), (129, 2), (256, 2),
+                                      (259, 3)])
+def test_band_passes_and_stream_price_the_kernels_chunk(k, passes):
+    """Through B5 (r <= 128) the band is read once per ``band_k_cols``
+    columns at ``band_bw``; wider bands take the batched matmuls, one
+    read at ``band_matmul_bw``; the reference's table reads once at its
+    ``hbm_bw``."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.banded import (
+        _band_passes, _band_stream_s,
+    )
+
+    nbytes = 186_187_776
+    assert _band_passes(H100, 128, k) == passes
+    assert _band_stream_s(H100, 128, k, nbytes) == pytest.approx(
+        nbytes * passes / H100.band_bw)
+    assert _band_passes(H100, 256, k) == 1
+    assert _band_stream_s(H100, 256, k, nbytes) == pytest.approx(
+        nbytes / H100.band_matmul_bw)
+    assert _band_passes(V5E, 128, k) == _band_passes(V5E, 256, k) == 1
+    assert _band_stream_s(V5E, 128, k, nbytes) == nbytes / V5E.band_bw
+    assert V5E.band_spill_s == 0.0 and H100.band_spill_s >= 0.0
+
+
 def test_h100_prices_chains_and_entries():
     assert H100.chain_floor > 0 and H100.ctas > 1 and H100.compact_tiles
     assert H100.entry_s > 0 and H100.gather_calib_records

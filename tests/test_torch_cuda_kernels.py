@@ -338,10 +338,17 @@ def _rel_to_oracle(out, csr, v):
     return np.abs(out.cpu().double().numpy() - ref).max() / np.abs(ref).max()
 
 
+#: Widths around B5's column chunk: one short, one chunk, one over (a
+#: ragged last chunk of one column) and two chunks and a ragged third.
+KC = cb.BAND_K_CHUNK
+BAND_WIDTHS = [1, 6, 8, 32, KC - 1, KC, KC + 1, 2 * KC + 3]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 6, 8, 32, 128])
-@pytest.mark.parametrize("r", [8, 128])
+@pytest.mark.parametrize("k", BAND_WIDTHS)
+@pytest.mark.parametrize("r", [8, 72, 128])
 def test_band_matmul_matches_plain(cuda, r, k, dtype):
+    """r = 8 and 72 fill half of their last m16 tile."""
     nb = 5
     rng = np.random.default_rng(r * 1000 + k)
     band = rng.uniform(-1, 1, (nb, r, 3 * r)).astype(np.float32)
@@ -362,6 +369,27 @@ def test_band_matmul_matches_plain(cuda, r, k, dtype):
         bound = bound + BF16_ULP * want.float().abs()
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_matmul_takes_an_unaligned_v(cuda, dtype):
+    """v's rows 16-byte aligned (k = 8) but its base 4 bytes past an
+    allocation's: the kernel stages it element by element."""
+    nb, r, k = 3, 128, 8
+    rng = np.random.default_rng(7)
+    band = torch.from_numpy(rng.uniform(-1, 1, (nb, r, 3 * r)).astype(
+        np.float32)).to(cuda, dtype)
+    flat = torch.from_numpy(rng.uniform(-1, 1, nb * r * k + 2).astype(
+        np.float32)).to(cuda, dtype)
+    v = flat[2:].view(nb * r, k)
+    assert v.data_ptr() % 16 != 0
+    got = cb.band_matmul(band, v)
+    want = cb.band_matmul_plain(band, v)
+    cond = cb.band_matmul_plain(band.float().abs(), v.float().abs())
+    bound = RTOL * cond + ATOL
+    if dtype == torch.bfloat16:
+        bound = bound + BF16_ULP * want.float().abs()
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
 
 
 def test_band_spill_on_card_matches_plain_and_oracle(cuda):
