@@ -144,7 +144,13 @@ on the card routes by the card's dispatch gates
    synthetic:cop20k_small --k 8 32`` (auto, library, row) with a CSV
    checkpoint and again with ``--resume`` (no job runs), ``read_csv``
    giving back its records, ``render_report`` naming the card, its
-   ``suspicious_records``;
+   ``suspicious_records``; and the dense views (``dense_views_check``):
+   ``to_dense`` of a card copy of CSR, COO, ELL, BucketedELL,
+   BandedBlocks and windowed U = 16 and U = 2 operands of small
+   matrices, f32 and bf16, bit for bit the host's (an f32 windowed copy
+   holds only its kernels' hi|lo planes: the host's view of those planes
+   bit for bit, the host operand's within 2**-16), ``spmm_dense`` of
+   each against the f64 oracle;
 14. narrow k on the kernels (a k that is not a multiple of 8 is
    zero-padded to 8 on the card; the reference took its dense plain
    route below k = 12): PageRank at k = 1 on the models benchmark's
@@ -161,8 +167,8 @@ on the card routes by the card's dispatch gates
    f64 oracle with one B2 and one B1 / B3 / B4 a call, B3 and B4
    against their plain versions at k8 = 8; ``scripts.run_models_bench``
    (all checks passed), ``scripts.run_results_sweep`` cut to cop20k at
-   k = 1 and 32 (auto, windowed_row and the bf16 row: all correct on
-   the card) and resumed with no job run again, ``spmm(csr, v)``, and
+   k = 1 and 32 (auto and the bf16 row: all correct on the card) and
+   resumed with no job run again, ``spmm(csr, v)``, and
    the three ``examples/torch_0*`` scripts with ``--device cuda``; each
    model's printed route launching its format's kernels, CG through its
    pick within 1.25x of CG through the band (B5) in the same run,
@@ -309,11 +315,7 @@ def windowed_csr(wp, dtype=None):
     dtype or ``dtype``."""
     import torch
 
-    from sparsematrixmultiplicationmpi_tpu_torch.ops.windowed import (
-        _plain_pairs,
-    )
-
-    tiles, pair_block, pair_chunk = _plain_pairs(wp)
+    tiles, pair_block, pair_chunk = wp.plain_pairs()
     _, R, C = tiles.shape
     p, r, c = torch.nonzero(tiles, as_tuple=True)
     return sparse_csr(pair_block.long()[p] * R + r,
@@ -1616,9 +1618,9 @@ def gcn_100k_phase(dev, power, n=100_000) -> None:
     from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
         BucketedELL,
     )
-    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
-    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
-        import route_kernels
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, route_kernels,
+    )
 
     t0 = time.perf_counter()
     a_hat, x, labels, mask = gcn_task(n=n)
@@ -1704,9 +1706,9 @@ def gcn_mesh_phase(dev, power, scale=1.0) -> dict:
     from sparsematrixmultiplicationmpi_tpu_torch.formats.matrix import (
         to_tensor,
     )
-    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import auto_format
-    from sparsematrixmultiplicationmpi_tpu_torch.scripts.run_models_bench \
-        import route_kernels
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+        auto_format, route_kernels,
+    )
 
     t0 = time.perf_counter()
     a_hat, x, labels, mask = mesh_gcn_task(f=GCN_F, c=GCN_C, scale=scale)
@@ -2187,6 +2189,77 @@ def run_cli(argv) -> tuple:
     return rc, out
 
 
+def dense_views_check(dev) -> dict:
+    """Phase 13's dense views: ``to_dense`` of a card copy of each format,
+    f32 and bf16, on small matrices, against the host operand's: bit for
+    bit, but where an f32 windowed copy holds only its kernels' bf16
+    hi|lo planes (``card_planes``), whose view is the host's view of the
+    same planes bit for bit and the host operand's within 2**-16 of each
+    value; ``spmm_dense`` of each card copy in ``v``'s dtype on the card,
+    within 1e-4 (f32) or 2e-2 (bf16) of the f64 oracle relative to its
+    largest output."""
+    import torch
+
+    from sparsematrixmultiplicationmpi_tpu_torch.formats import (
+        BandedBlocks, BucketedELL, ELL, CompactTiles, WindowedPairs,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.io.generate import (
+        banded_csr, generate_fat_vector, powerlaw_csr,
+    )
+    from sparsematrixmultiplicationmpi_tpu_torch.ops.oracle import (
+        spmm_dense, spmm_host_f64,
+    )
+
+    t0 = time.perf_counter()
+    pl = powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
+    band = banded_csr(400, 6, 4, seed=3).astype(np.float32)
+    windowed = {u: WindowedPairs.from_csr(
+        pl, block_rows=128, chunk_cols=128, pairs_per_step=u,
+        beat_gather_margin=np.inf) for u in (16, 2)}
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        csr, bcsr = pl.astype(dtype), band.astype(dtype)
+        ops = {"CSR": (csr, csr), "COO": (csr.to_coo(), csr),
+               "ELL": (ELL.from_csr(csr), csr),
+               "BucketedELL": (BucketedELL.from_csr(csr), csr),
+               "BandedBlocks": (BandedBlocks.from_csr(bcsr, block_rows=8),
+                                bcsr),
+               **{f"WindowedPairs U={u}": (w.astype(dtype), csr)
+                  for u, w in windowed.items()}}
+        for name, (host, src) in ops.items():
+            card = host.to(dev)
+            got, want = card.to_dense(), host.to_dense()
+            split_only = isinstance(host, WindowedPairs) and (
+                card.split and card.tiles is None)
+            if isinstance(host, WindowedPairs):
+                check(isinstance(card.tiles_t if host.pairs_per_step > 2
+                                 else card.natural_plane, CompactTiles),
+                      f"dense views: {name} {dtype} holds no compact plane")
+                same = host.card_planes().to("cpu").to_dense()
+            else:
+                same = want
+            bitwise = got.dtype == np.float32 and np.array_equal(got, same)
+            close = bool(np.all(np.abs(got - want) <= (
+                2.0 ** -16 * np.abs(want) if split_only else 0)))
+            v = torch.from_numpy(generate_fat_vector(
+                src.shape[1], 4, seed=2).astype(np.float32)).to(dev, dtype)
+            out = spmm_dense(card, v)
+            ref = spmm_host_f64(src, v.float().cpu().numpy())
+            err = float(np.abs(out.float().cpu().numpy() - ref).max()
+                        / np.abs(ref).max())
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            label = f"{name} {str(dtype).removeprefix('torch.')}"
+            res[label] = {"bitwise": bool(bitwise), "split_only": split_only,
+                          "spmm_dense_rel_err": err}
+            check(bitwise and close and out.dtype == dtype
+                  and out.device == v.device and err < tol,
+                  f"dense views: {label}: bitwise={bitwise} close={close} "
+                  f"spmm_dense {out.dtype} on {out.device}, rel err {err}")
+    print(f"dense views of card copies: {len(res)} operands bit for bit "
+          f"({time.perf_counter() - t0:.1f} s): {res}")
+    return res
+
+
 def cli_phase(dev, power, kind, one_rank_ms) -> dict:
     """Phase 13: the port's command line on the card. ``info`` in a
     subprocess that imports no JAX; ``run synthetic:cop20k --k 32
@@ -2233,7 +2306,7 @@ def cli_phase(dev, power, kind, one_rank_ms) -> dict:
     from sparsematrixmultiplicationmpi_tpu_torch.ops import auto as ops_auto
     from sparsematrixmultiplicationmpi_tpu_torch.parallel import strategies
 
-    res, launches = {}, {}
+    res, launches = {"dense_views": dense_views_check(dev)}, {}
     with tempfile.TemporaryDirectory() as tmp:
         # info, in a process of its own that must not import JAX
         code = ("import runpy, sys\n"
@@ -2873,7 +2946,7 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
         cop20k_like, generate_fat_vector,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
-        auto_format, spmm,
+        auto_format, route_kernels, spmm,
     )
     from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
         run_models_bench, run_results_sweep,
@@ -2911,23 +2984,23 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
         res["cg_against_the_band"] = cg_against_the_band(dev)
 
         argv = ["--matrices", "cop20k_like", "--ks", "1", "32",
-                "--strategies", "auto", "windowed_row", "--out-dir", tmp,
+                "--strategies", "auto", "--out-dir", tmp,
                 "--scale", str(scale)]
         reset_counts()
         rc, out = run_main("run_results_sweep", run_results_sweep.main, argv)
         launches["sweep"] = all_counts()
         check(rc == 0, f"run_results_sweep exited {rc}")
         rows = read_csv(os.path.join(tmp, "h100_sweep.csv"))
-        check(len(rows) == 5 and all(r.correct and not r.error
+        check(len(rows) == 3 and all(r.correct and not r.error
                                      and r.device_kind != "cpu"
                                      for r in rows),
-              f"the sweep's rows are not 5 correct card rows: "
+              f"the sweep's rows are not 3 correct card rows: "
               f"{[(r.strategy, r.k, r.dtype, r.correct, r.error) for r in rows]}")
         check(launches["sweep"]["B1"] > 0 and launches["sweep"]["B2"] > 0,
               f"the sweep ran B1 / B2 no time: {launches['sweep']}")
         rc, out = run_main("run_results_sweep (resumed)",
                            run_results_sweep.main, argv)
-        check(rc == 0 and "5 records (0 new)" in out,
+        check(rc == 0 and "3 records (0 new)" in out,
               "the resumed sweep ran a job again")
         res["sweep"] = {f"{r.strategy} k={r.k} {r.dtype}":
                         r.execution_time * 1e3 for r in rows}
@@ -2936,7 +3009,7 @@ def scripts_phase(dev, power, scale=1.0) -> dict:
     v_host = generate_fat_vector(csr.shape[1], K, seed=0).astype(np.float32)
     oracle, cond = oracle_parts(csr, v_host)
     pick = auto_format(csr, device=dev, one_shot=True)
-    route = run_models_bench.route_kernels(pick, K)
+    route = route_kernels(pick, K)
     reset_counts()
     got = spmm(csr, torch.from_numpy(v_host).to(dev))
     torch.cuda.synchronize()

@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from .cost import CostTable, cost_table_for
-from .matrix import BucketedELL, CSR, array_dtype, cast, to_tensor
+from .matrix import (
+    BucketedELL, CSR, array_dtype, cast, host_values, to_tensor,
+)
 
 __all__ = ["BandedBlocks", "band_coverage"]
 
@@ -102,14 +104,11 @@ class BandedBlocks:
         return spmm_banded(self, v)
 
     def to_dense(self) -> np.ndarray:
-        """The matrix as a host array (a bf16 band as float32) of a
-        host-side operand."""
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32)."""
         m, n = self.shape
         r = self.block_rows
-        band = to_tensor(self.band, "cpu")
-        if band.dtype == torch.bfloat16:
-            band = band.to(torch.float32)
-        band = band.numpy()
+        band = host_values(self.band)
         out = np.zeros((m, n), dtype=band.dtype)
         for b in range(self.n_blocks):
             rows_hi = min((b + 1) * r, m)
@@ -121,7 +120,7 @@ class BandedBlocks:
                         b, : rows_hi - b * r,
                         s * r + lo - cols: s * r + hi - cols]
         if self.spill is not None:
-            out = out + self.spill.astype(out.dtype).to_dense()
+            out = out + self.spill.to_dense()
         return out
 
     @classmethod

@@ -21,7 +21,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from .matrix import COO, CSR, cast, coalesce_coo, to_tensor
+from .matrix import COO, CSR, cast, coalesce_coo, host_values, to_tensor
 
 __all__ = ["HubExtracted", "split_hub_columns", "MAX_HUB_COLS"]
 
@@ -91,11 +91,12 @@ class HubExtracted:
             remainder=self.remainder.to(device))
 
     def to_dense(self) -> np.ndarray:
-        """The matrix as a host array (host operands only)."""
-        dc = np.asarray(self.dense_cols)
-        base = np.zeros(self.shape, dtype=dc.dtype) + np.asarray(
-            self.remainder.to_dense())
-        base[:, np.asarray(self.hub_ids)] += dc
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32): the remainder's dense view with the hub
+        columns added."""
+        dc = host_values(self.dense_cols)
+        base = np.zeros(self.shape, dtype=dc.dtype) + self.remainder.to_dense()
+        base[:, host_values(self.hub_ids)] += dc
         return base
 
     def __matmul__(self, v: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ Containers
 ``ELL``   — row-padded ``(m_padded, width)`` column/value planes.
 ``BucketedELL`` — rows bucketed by length into a few ELL planes plus a
             row permutation.
+
+Each container's ``to_dense`` reads its arrays through the host
+(``host_values``), so it works on a host operand and on a card copy
+alike, and returns numpy: a bf16 operand's dense view is float32 holding
+its bf16 values exactly (numpy has no bfloat16).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 __all__ = ["CSR", "COO", "ELL", "BucketedELL", "coalesce_coo",
            "split_csr_by_width", "to_tensor", "array_dtype", "cast",
-           "as_float64"]
+           "as_float64", "host_values"]
 
 
 def to_tensor(x, device):
@@ -68,6 +73,28 @@ def cast(x, dtype):
     if dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
+
+
+def host_values(x) -> np.ndarray:
+    """A host (numpy) or device (torch) array as host numpy; bfloat16 (a
+    ``torch.bfloat16`` tensor or ``uint16`` bits) as float32 holding the
+    same values exactly."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if x.dtype != np.uint16:
+            return x
+    t = to_tensor(x, "cpu").detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def _scatter_dense(shape, rows, cols, vals) -> np.ndarray:
+    """``out[rows, cols] += vals`` into zeros of ``shape`` (host numpy
+    index and value arrays)."""
+    out = np.zeros(shape, dtype=vals.dtype)
+    np.add.at(out, (rows, cols), vals)
+    return out
 
 
 def as_float64(x) -> np.ndarray:
@@ -112,6 +139,11 @@ class CSR:
     def nnz(self) -> int:
         return int(self.values.shape[0])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The values' dtype, host or device (``array_dtype``)."""
+        return array_dtype(self.values)
+
     def astype(self, dtype) -> "CSR":
         """Values cast to ``dtype`` (torch or numpy) through ``cast``:
         bfloat16 becomes ``uint16`` bits, rounded to nearest even."""
@@ -141,7 +173,12 @@ class CSR:
                                np.cumsum(row_ptr, dtype=np.int32), (m, n))
 
     def to_dense(self) -> np.ndarray:
-        return self.to_coo().to_dense()
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32)."""
+        m, _ = self.shape
+        rows = np.repeat(np.arange(m), np.diff(host_values(self.row_ptr)))
+        return _scatter_dense(self.shape, rows, host_values(self.col_indices),
+                              host_values(self.values))
 
     def to_coo(self) -> "COO":
         m, _ = self.shape
@@ -168,6 +205,11 @@ class COO:
     def nnz(self) -> int:
         return int(self.values.shape[0])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The values' dtype, host or device (``array_dtype``)."""
+        return array_dtype(self.values)
+
     def astype(self, dtype) -> "COO":
         return dataclasses.replace(self, values=cast(self.values, dtype))
 
@@ -184,12 +226,11 @@ class COO:
         )
 
     def to_dense(self) -> np.ndarray:
-        m, n = self.shape
-        out = np.zeros((m, n), dtype=np.asarray(self.values).dtype)
-        np.add.at(out, (np.asarray(self.row_indices),
-                        np.asarray(self.col_indices)),
-                  np.asarray(self.values))
-        return out
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32)."""
+        return _scatter_dense(self.shape, host_values(self.row_indices),
+                              host_values(self.col_indices),
+                              host_values(self.values))
 
     def pad_to(self, nnz_padded: int) -> "COO":
         """Padded with explicit zeros at (0, 0) to ``nnz_padded`` entries
@@ -238,6 +279,11 @@ class ELL:
     def m_padded(self) -> int:
         return int(self.cols.shape[0])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The values' dtype, host or device (``array_dtype``)."""
+        return array_dtype(self.vals)
+
     def to(self, device) -> "ELL":
         return _move(self, device, ("cols", "vals"))
 
@@ -269,11 +315,12 @@ class ELL:
         return cls(cols=cols, vals=vals, shape=(m, n))
 
     def to_dense(self) -> np.ndarray:
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32); padding entries add zeros."""
         m, n = self.shape
-        out = np.zeros((self.m_padded, n), dtype=np.asarray(self.vals).dtype)
-        np.add.at(out, (np.arange(self.m_padded)[:, None],
-                        np.asarray(self.cols)), np.asarray(self.vals))
-        return out[:m]
+        return _scatter_dense(
+            (self.m_padded, n), np.arange(self.m_padded)[:, None],
+            host_values(self.cols), host_values(self.vals))[:m]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +335,11 @@ class BucketedELL:
     row_perm: np.ndarray
     inv_row_perm: np.ndarray
     shape: Tuple[int, int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The buckets' value dtype, host or device."""
+        return self.buckets[0].dtype
 
     def to(self, device) -> "BucketedELL":
         moved = _move(self, device, ("row_perm", "inv_row_perm"))
@@ -345,12 +397,14 @@ class BucketedELL:
                    inv_row_perm=inv_row_perm, shape=(m, n))
 
     def to_dense(self) -> np.ndarray:
+        """The matrix as a host array, from a host operand or a card copy
+        (a bf16 one as float32); padding rows land on row ``m``, dropped."""
         m, n = self.shape
         stacked = np.concatenate([
             np.pad(b.to_dense(), ((0, b.m_padded - b.shape[0]), (0, 0)))
             for b in self.buckets])
         out = np.zeros((m + 1, n), dtype=stacked.dtype)
-        np.add.at(out, np.asarray(self.row_perm), stacked)
+        np.add.at(out, host_values(self.row_perm), stacked)
         return out[:m]
 
 

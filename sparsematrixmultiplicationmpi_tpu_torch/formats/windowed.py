@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from .cost import V5E, CostTable, cost_table_for
-from .matrix import BucketedELL, CSR, ELL, array_dtype, cast, to_tensor
+from .matrix import (
+    BucketedELL, CSR, ELL, array_dtype, cast, host_values, to_tensor,
+)
 
 __all__ = ["WindowedPairs", "CompactTiles", "windowed_cost_estimate",
            "windowed_wins",
@@ -870,6 +872,70 @@ class WindowedPairs:
         return int(self.pair_block.shape[0])
 
     @property
+    def dense_bytes(self) -> int:
+        """Bytes of the dense tile array ``(P, R, C)`` in the operand's
+        dtype, as the JAX package counts them, whichever planes this copy
+        holds."""
+        return (self.n_pairs * self.block_rows * self.chunk_cols
+                * self.dtype.itemsize)
+
+    def plain_pairs(self):
+        """``(tiles (P, R, C), pair_block, pair_chunk)`` of a copy whose
+        arrays are tensors (``to``), where they lie: the operand's own
+        block-major pairs, or, in a card copy that holds only the
+        kernels' planes, tiles rebuilt from them: exact for one plane;
+        hi + lo for split planes, the kernels' precision (within 2**-17
+        relative of the f32 tile); a ``CompactTiles`` plane densified
+        first. A phase-major ``tiles_t`` comes with its pairs' global
+        block and chunk ids; its dummy tiles are zero. The plain path
+        multiplies these."""
+        C = self.chunk_cols
+        if self.tiles is not None:
+            return (dense_plane(self.tiles), self.pair_block,
+                    self.pair_chunk)
+        if self.tiles_t is None:  # U=2 f32: the natural split planes
+            t = dense_plane(self.tiles_split)
+            return (t[..., :C].to(torch.float32)
+                    + t[..., C:].to(torch.float32),
+                    self.pair_block, self.pair_chunk)
+        t = dense_plane(self.tiles_t)
+        if self.split:
+            t = t[:, :C].to(torch.float32) + t[:, C:].to(torch.float32)
+        t = t.transpose(1, 2)
+        if self.phases is None:
+            return t, self.pair_block, self.pair_chunk
+        counts = torch.tensor([ph[1] for ph in self.phases], device=t.device)
+        chunk_lo = torch.tensor([ph[2] for ph in self.phases],
+                                device=t.device)
+        block_lo = torch.tensor([ph[3] for ph in self.phases],
+                                device=t.device)
+        return (t, self.pair_block_ph + block_lo.repeat_interleave(counts),
+                self.pair_chunk_ph + chunk_lo.repeat_interleave(counts))
+
+    def to_dense(self) -> np.ndarray:
+        """The original-order matrix as a host array (test/debug only),
+        from a host build or a card copy, read through the host: each
+        tile at its (block, chunk), the spill added, the permutation
+        undone. The tiles are those of ``plain_pairs``: a copy that holds
+        only split planes gives hi + lo; a bf16 operand gives float32
+        holding its bf16 values exactly."""
+        m, n = self.shape
+        R, C = self.block_rows, self.chunk_cols
+        tiles, pb, pc = self.to("cpu").plain_pairs()
+        if tiles.dtype == torch.bfloat16:
+            tiles = tiles.to(torch.float32)
+        out = tiles.new_zeros((self.n_blocks, self.n_chunks, R, C))
+        out.index_put_((pb.long(), pc.long()), tiles, accumulate=True)
+        out = out.transpose(1, 2).reshape(self.n_blocks * R,
+                                          self.n_chunks * C)[:m, :n].numpy()
+        if self.spill is not None:
+            out = out + self.spill.to_dense()
+        if self.inv_perm is not None:
+            inv = host_values(self.inv_perm)
+            out = out[np.ix_(inv, inv)]
+        return out
+
+    @property
     def split(self) -> bool:
         """Whether f32 values ride as bf16 hi|lo planes; read from
         ``tiles_t`` where built, since a device copy may drop the natural
@@ -925,12 +991,10 @@ class WindowedPairs:
             block_ptr_ph=_phase_block_ptr(pb_ph, phases),
             spill=None if self.spill is None else self.spill.astype(dtype))
 
-    def to(self, device) -> "WindowedPairs":
-        """A copy whose arrays are torch tensors on ``device`` (bf16
-        planes as ``torch.bfloat16``). A CUDA copy leaves behind, as
-        ``None``, the planes no kernel of its route reads, and holds the
-        plane its kernels read as its ``CompactTiles`` (built here on the
-        host, once per operand):
+    def card_planes(self) -> "WindowedPairs":
+        """This operand with the planes a CUDA copy holds (``to``), still
+        on the host: the planes no kernel of its route reads left behind
+        as ``None``, the plane its kernels read as its ``CompactTiles``:
 
         * U>2 with ``R % 128 == 0``: ``tiles_t``'s plane, for B1 and B6;
           ``tiles`` and ``tiles_split`` dropped;
@@ -942,47 +1006,57 @@ class WindowedPairs:
         COMPACT_MAX_C``, the widest chunk the compact kernels stage; a
         wider chunk keeps the dense natural planes, which the dense
         natural kernel reads. A U=2 one-plane f32 operand keeps its dense
-        ``tiles`` (B4 f32). The plain path rebuilds its tiles from the
-        planes kept. The host arrays are left as they are.
+        ``tiles`` (B4 f32). The plain path, and ``to_dense``, rebuild the
+        tiles from the planes kept (``plain_pairs``)."""
+        dropped, compact = (), {}  # compact: field -> natural orientation
+        narrow = self.chunk_cols <= COMPACT_MAX_C
+        if (self.pairs_per_step > 2 and self.tiles_t is not None
+                and self.block_rows % 128 == 0):
+            dropped, compact = ("tiles", "tiles_split"), {"tiles_t": False}
+        elif self.pairs_per_step <= 2 and self.tiles_split is not None:
+            dropped = ("tiles",)
+            if narrow:
+                compact = {"tiles_split": True}
+        elif (self.pairs_per_step <= 2 and narrow
+              and self.dtype == torch.bfloat16):
+            compact = {"tiles": True}
+        fields = dict.fromkeys(dropped)
+        for f, natural in compact.items():
+            x = getattr(self, f)
+            if not isinstance(x, CompactTiles):
+                x = (CompactTiles.from_natural if natural
+                     else CompactTiles.from_dense)(x, self.split)
+            fields[f] = x
+        return dataclasses.replace(self, **fields)
+
+    def to(self, device) -> "WindowedPairs":
+        """A copy whose arrays are torch tensors on ``device`` (bf16
+        planes as ``torch.bfloat16``). A CUDA copy holds ``card_planes``
+        (its ``CompactTiles`` built here on the host, once per operand).
+        The host arrays are left as they are.
 
         Moving a U=2 operand to a CUDA device audits, on the host arrays,
         the two-pair kernels' contract (pairs ``2s`` and ``2s+1`` share a
         row block), as the reference's dispatch does, and raises when it
         is violated."""
         device = torch.device(device)
-        cuda = device.type == "cuda"
-        two_pair = cuda and self.pairs_per_step <= 2
-        if two_pair:
+        src = self
+        if device.type == "cuda":
             pb = self.pair_block
-            if isinstance(pb, np.ndarray) and (
+            if self.pairs_per_step <= 2 and isinstance(pb, np.ndarray) and (
                     len(pb) % 2 or np.any(pb[0::2] != pb[1::2])):
                 raise ValueError(
                     "two-pair kernel contract violated: per-block pair "
                     "runs must be padded to even length "
                     "(WindowedPairs.from_csr pairs_per_step=2 branch)")
-        dropped, compact = (), {}  # compact: field -> natural orientation
-        narrow = self.chunk_cols <= COMPACT_MAX_C
-        if (cuda and self.pairs_per_step > 2 and self.tiles_t is not None
-                and self.block_rows % 128 == 0):
-            dropped, compact = ("tiles", "tiles_split"), {"tiles_t": False}
-        elif two_pair and self.tiles_split is not None:
-            dropped = ("tiles",)
-            if narrow:
-                compact = {"tiles_split": True}
-        elif two_pair and narrow and self.dtype == torch.bfloat16:
-            compact = {"tiles": True}
+            src = self.card_planes()
         fields = {}
         for f in self._ARRAYS:
-            x = getattr(self, f)
-            if f in dropped:
-                x = None
-            elif f in compact and not isinstance(x, CompactTiles):
-                x = (CompactTiles.from_natural if compact[f]
-                     else CompactTiles.from_dense)(x, self.split)
+            x = getattr(src, f)
             fields[f] = (x.to(device) if isinstance(x, CompactTiles)
                          else to_tensor(x, device))
         return dataclasses.replace(
-            self,
+            src,
             spill=None if self.spill is None else self.spill.to(device),
             **fields)
 

@@ -41,7 +41,7 @@ from .banded import spmm_banded
 from .ell import spmm_bucketed
 
 __all__ = ["auto_format", "spmm", "spmm_any", "gather_class_estimates",
-           "route_candidates"]
+           "route_candidates", "route_kernels"]
 
 AutoFormat = Union[WindowedPairs, BandedBlocks, BucketedELL, COO,
                    HubExtracted]
@@ -300,6 +300,39 @@ def spmm_any(operand: AutoFormat, v: torch.Tensor) -> torch.Tensor:
 
         return spmm_library(operand, v)
     raise TypeError(f"unsupported operand format: {type(operand)}")
+
+
+def route_kernels(operand: AutoFormat, k: int) -> tuple:
+    """The hand-written kernels one width-``k`` ``spmm_any`` on a card
+    copy of ``operand`` launches, by the card's dispatch
+    (``formats/cost.py::dispatch_table``): B2 then B1 (B6 on a phase
+    layout; B3 or B4 at U = 2) for windowed tiles that take the kernels
+    (``ops/windowed.py::_takes_kernels``), B5 for a band the kernel
+    takes, B7 for bucketed ELL and for a spill, a hub operand's
+    remainder's; none for COO, whose route is a gather and an
+    ``index_add_`` (the JAX package's is XLA's segment sum: no Pallas
+    kernel either)."""
+    gates = dispatch_table("cuda")
+    b7 = ("B7",) if gates.spill_dma_gather and k <= 128 else ()
+    if isinstance(operand, HubExtracted):
+        return route_kernels(operand.remainder, k)
+    if isinstance(operand, BucketedELL):
+        return b7
+    spill = b7 if getattr(operand, "spill", None) is not None else ()
+    if isinstance(operand, BandedBlocks):
+        own = operand.block_rows <= gates.max_kernel_block_rows
+        return ("B5",) * own + spill
+    if isinstance(operand, WindowedPairs):
+        from .windowed import _takes_kernels
+
+        if not _takes_kernels(operand, k, "cuda"):
+            return spill
+        if operand.pairs_per_step > 2:
+            own = "B1" if operand.phases is None else "B6"
+        else:
+            own = "B3" if operand.split else "B4"
+        return ("B2", own) + spill
+    return ()
 
 
 def _band_kernel_takes(operand: BandedBlocks, v: torch.Tensor) -> bool:

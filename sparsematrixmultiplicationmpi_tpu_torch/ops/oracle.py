@@ -6,7 +6,8 @@ result is checked against (the reference's sequential kernel,
 ``SparseMatrixFatVectorMultiply.cpp:11-31``, also ran in f64 on the host).
 ``spmm_coo`` is the triple loop as one row gather plus an ``index_add_``
 over the COO rows; ``spmm_sequential`` is the single-device oracle over
-it, ``spmm_dense`` the densify-and-matmul oracle for small matrices.
+it, ``spmm_dense`` the densify-and-matmul oracle for small matrices
+(every format, either device, any dtype).
 """
 
 from __future__ import annotations
@@ -40,9 +41,10 @@ def spmm_sequential(matrix, v: torch.Tensor) -> torch.Tensor:
 
 def spmm_dense(matrix, v: torch.Tensor) -> torch.Tensor:
     """Densify-and-matmul oracle, for small test matrices only: the dense
-    matrix in ``v``'s dtype times ``v``."""
-    dense = torch.from_numpy(as_float64(matrix.to_dense())).to(
-        device=v.device, dtype=v.dtype)
+    view of any format (a host operand or a card copy, ``to_dense``) in
+    ``v``'s dtype times ``v``, on ``v``'s device."""
+    dense = torch.from_numpy(matrix.to_dense()).to(device=v.device,
+                                                   dtype=v.dtype)
     return torch.matmul(dense, v)
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..formats.cost import dispatch_table
-from ..formats.windowed import WindowedPairs, dense_plane
+from ..formats.windowed import WindowedPairs
 from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
@@ -60,34 +60,6 @@ def _finish(wp: WindowedPairs, out_blocks: torch.Tensor,
     return out
 
 
-def _plain_pairs(wp: WindowedPairs):
-    """``(tiles (P, R, C), pair_block, pair_chunk)`` of the plain path:
-    the operand's own block-major pairs, or, in a card copy that holds
-    only the kernels' planes, tiles rebuilt from them (exact for one
-    plane; hi + lo, within 2**-17 relative of the f32 tile, for split
-    planes, the precision the kernels use; a ``CompactTiles`` plane
-    densified first). A phase-major ``tiles_t`` comes with its pairs'
-    global block and chunk ids; its dummy tiles are zero."""
-    C = wp.chunk_cols
-    if wp.tiles is not None:
-        return dense_plane(wp.tiles), wp.pair_block, wp.pair_chunk
-    if wp.tiles_t is None:  # U=2 f32: the natural split planes
-        t = dense_plane(wp.tiles_split)
-        return (t[..., :C].to(torch.float32) + t[..., C:].to(torch.float32),
-                wp.pair_block, wp.pair_chunk)
-    t = dense_plane(wp.tiles_t)
-    if wp.split:
-        t = t[:, :C].to(torch.float32) + t[:, C:].to(torch.float32)
-    t = t.transpose(1, 2)
-    if wp.phases is None:
-        return t, wp.pair_block, wp.pair_chunk
-    counts = torch.tensor([ph[1] for ph in wp.phases], device=t.device)
-    chunk_lo = torch.tensor([ph[2] for ph in wp.phases], device=t.device)
-    block_lo = torch.tensor([ph[3] for ph in wp.phases], device=t.device)
-    return (t, wp.pair_block_ph + block_lo.repeat_interleave(counts),
-            wp.pair_chunk_ph + chunk_lo.repeat_interleave(counts))
-
-
 def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     """Padded-permuted-space SpMM via slab gather + batched matmul +
     block segment-sum (plain PyTorch on any device). ``v_p`` is
@@ -96,7 +68,7 @@ def spmm_windowed_xla(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     nb = wp.n_blocks
     k = v_p.shape[1]
     n_chunks = wp.n_chunks
-    tiles, pair_block, pair_chunk = _plain_pairs(wp)
+    tiles, pair_block, pair_chunk = wp.plain_pairs()
     # f32 accumulation even for bf16 operands; operands cast to the tile
     # dtype first, as the reference does.
     out_dtype = torch.promote_types(

@@ -25,16 +25,20 @@ Times are CUDA events on the card (the host clock on the CPU). Writes
 ``--out-dir`` with the JAX script's keys, ``"hardware"`` being the
 card's name and power limit from ``nvidia-smi``. Prints one JSON line of
 checks (each model's route among them: its format and the kernels it
-launches on the card) and launch counts; exits 1 when a check fails: a non-finite or
-non-falling GCN loss, a CG solution whose true residual exceeds 1e-4 or
-that took more than ``max_iter`` iterations, PageRank ranks off a host
-float64 power iteration of the same length by more than the f32 tier
-(1e-4 of each rank) or not summing to 1, and on the card a route that
-launches no hand-written kernel (``route_kernels``: COO's), or kernel
-launches other than one multiply's of the route's kernels (each
-counted on one call, every one of them launched) a CG iteration, plus
-one, a PageRank iteration, or a GCN SpMM. ``--scale`` shrinks the three
-problems for a quick run.
+launches on the card, ``ops/auto.py::route_kernels``) and launch
+counts; exits 1 when a check fails: a non-finite or non-falling GCN
+loss, a CG solution whose true residual exceeds 1e-4 or that took more
+than ``max_iter`` iterations, PageRank ranks off a host float64 power
+iteration of the same length by more than the f32 tier (1e-4 of each
+rank) or not summing to 1, and on the card kernel launches other than
+one multiply's of the route's kernels (each counted on one call, every
+one of them launched) a CG iteration, plus one, a PageRank iteration,
+or a GCN SpMM. A route with no hand-written kernel (COO, which the H100
+table picks for PageRank's graph at small ``--scale``) must launch none:
+its multiply is a gather and an ``index_add_``, as the JAX package's is
+XLA's segment sum, with no Pallas kernel either. The route is named in
+the checks all the same (``pagerank_route``). ``--scale`` shrinks the
+three problems for a quick run.
 """
 
 from __future__ import annotations
@@ -49,25 +53,20 @@ import numpy as np
 import torch
 
 from ..bench.systems import spd_banded_system
-from ..formats.banded import BandedBlocks
-from ..formats.cost import dispatch_table
-from ..formats.hub import HubExtracted
-from ..formats.matrix import BucketedELL
-from ..formats.windowed import WindowedPairs
 from ..io.generate import cop20k_like
 from ..models import (
     conjugate_gradient, init_gcn, make_train_step, normalize_adjacency,
     normalize_columns, pagerank, synthetic_node_classification,
 )
 from ..ops import cuda_banded, cuda_gather, cuda_windowed
-from ..ops.auto import auto_format, spmm_any
+from ..ops.auto import auto_format, route_kernels, spmm_any
 from ..ops.autodiff import make_symmetric_spmm
 from ..ops.oracle import spmm_host_f64
 from ..utils.timing import time_fn, time_region
 from . import _common
 
 __all__ = ["main", "gcn_bench", "cg_bench", "pagerank_bench",
-           "pagerank_host_f64", "hi_only", "route_kernels"]
+           "pagerank_host_f64", "hi_only"]
 
 #: PageRank's f32 tier against the host f64 iteration, per rank: above
 #: the split product's error and below that of the same iteration on the
@@ -98,40 +97,18 @@ def _one_multiply(multiply, n: int, k: int, dev) -> dict:
     return _counts()
 
 
-def route_kernels(operand, k: int) -> tuple:
-    """The hand-written kernels one width-``k`` multiply on ``operand``
-    launches on the card, by its dispatch (``formats/cost.py::
-    dispatch_table``): B2 and B1 (B6 on a phase layout; B3 or B4 at U = 2)
-    for windowed tiles, B5 for a band the kernel takes, B7 for bucketed
-    ELL and for a spill; none for COO."""
-    gates = dispatch_table("cuda")
-    b7 = ("B7",) if gates.spill_dma_gather and k <= 128 else ()
-    if isinstance(operand, HubExtracted):
-        return route_kernels(operand.remainder, k)
-    if isinstance(operand, BucketedELL):
-        return b7
-    spill = b7 if getattr(operand, "spill", None) is not None else ()
-    if isinstance(operand, BandedBlocks):
-        own = operand.block_rows <= gates.max_kernel_block_rows
-        return ("B5",) * own + spill
-    if isinstance(operand, WindowedPairs):
-        if operand.pairs_per_step > 2:
-            own = "B1" if operand.phases is None else "B6"
-        else:
-            own = "B3" if operand.split else "B4"
-        return ("B2", own) + spill
-    return ()
-
-
 def _route(operand, kernels: tuple) -> dict:
     return {"format": type(operand).__name__, "kernels": list(kernels)}
 
 
 def _launched_per_multiply(launches: dict, per: dict, calls: int,
                            route: tuple) -> bool:
-    """Whether the route launches kernels, one multiply launched each of
-    them, and ``launches`` is ``calls`` multiplies' kernels."""
-    return (bool(route) and all(per.get(name, 0) > 0 for name in route)
+    """Whether one multiply launched each kernel of the route, and
+    ``launches`` is ``calls`` multiplies' kernels; a route without
+    hand-written kernels (COO's) launched none."""
+    if not route:
+        return not any(per.values()) and not any(launches.values())
+    return (all(per.get(name, 0) > 0 for name in route)
             and all(launches[name] == per[name] * calls for name in per))
 
 

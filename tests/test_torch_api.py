@@ -5,9 +5,14 @@ Sequential and dense oracles on the JAX package's own test cases
 ``formats`` and ``utils`` ``__all__`` (in its order, the port's library
 names in place of BCOO), ``native_dir``; the host bf16 split's bits on
 non-finite values against the JAX split, in the split itself and in a
-windowed build; and the narrow-k routing decision (``_takes_kernels``),
+windowed build; the narrow-k routing decision (``_takes_kernels``),
 which sends every k through the kernels on the card and keeps the
-reference's gate on the CPU.
+reference's gate on the CPU; the kernels a multiply on each format
+launches on the card (``ops/auto.py::route_kernels``) and the models
+benchmark's launch check; and member-level parity: every public
+function, class, method, property, field and parameter of every JAX
+module exists in the port's module of the same path, but for an
+allow-list (``PARITY_DIVERGENCES``) that ``ROADMAP.md`` repeats.
 """
 
 import dataclasses
@@ -35,6 +40,7 @@ import sparsematrixmultiplicationmpi_tpu_torch.formats.windowed as TW
 import sparsematrixmultiplicationmpi_tpu_torch.io.generate as TG
 import sparsematrixmultiplicationmpi_tpu_torch.io.native as TN
 import sparsematrixmultiplicationmpi_tpu_torch.ops as TO
+import sparsematrixmultiplicationmpi_tpu_torch.ops.auto as TOA
 import sparsematrixmultiplicationmpi_tpu_torch.ops.windowed as TOW
 import sparsematrixmultiplicationmpi_tpu_torch.utils as TU
 from sparsematrixmultiplicationmpi_tpu_torch.utils.compare import (
@@ -281,3 +287,277 @@ def test_narrow_k_on_the_cpu_stays_on_the_plain_path():
     v_p = wp.encode(v)
     assert torch.equal(TOW.spmm_windowed_core(wp, v_p),
                        TOW.spmm_windowed_xla(wp, v_p))
+
+
+# ---- the kernels a route launches on the card ---------------------------
+
+def _route_cases():
+    """(label, host operand, k, the kernels one multiply on its card
+    copy launches)."""
+    from sparsematrixmultiplicationmpi_tpu_torch.formats.hub import (
+        HubExtracted,
+    )
+
+    pl = TG.powerlaw_csr(2000, 2000, 20000, seed=7).astype(np.float32)
+    band = TG.banded_csr(400, 6, 4, seed=3).astype(np.float32)
+
+    def wp(U, R=128, **kw):
+        return TW.WindowedPairs.from_csr(
+            pl, block_rows=R, chunk_cols=128, pairs_per_step=U,
+            beat_gather_margin=np.inf, **kw)
+
+    u16 = wp(16)
+    return [
+        ("COO", pl.to_coo(), 32, ()),
+        ("BucketedELL", TF.BucketedELL.from_csr(pl), 32, ("B7",)),
+        ("BucketedELL-k256", TF.BucketedELL.from_csr(pl), 256, ()),
+        ("band-128", TF.BandedBlocks.from_csr(band, block_rows=128), 8,
+         ("B5",)),
+        ("band-256", TF.BandedBlocks.from_csr(band, block_rows=256), 8, ()),
+        ("U16-spill", u16, 32, ("B2", "B1", "B7")),
+        ("U16-spill-k1", u16, 1, ("B2", "B1", "B7")),
+        ("U16-R16-spill", wp(16, R=16), 32, ("B7",)),
+        ("U2-f32", wp(2), 32, ("B2", "B3", "B7")),
+        ("U2-bf16", wp(2).astype(torch.bfloat16), 32, ("B2", "B4", "B7")),
+        ("hub", HubExtracted(dense_cols=np.zeros((2000, 1), np.float32),
+                             hub_ids=np.zeros(1, np.int32), remainder=u16,
+                             shape=pl.shape), 32, ("B2", "B1", "B7")),
+    ]
+
+
+def test_route_kernels_by_format():
+    for label, op, k, want in _route_cases():
+        assert TOA.route_kernels(op, k) == want, label
+
+
+def test_route_kernels_of_a_phase_layout_is_b6():
+    csr = TG.banded_csr(512, 24, 8, seed=51).astype(np.float32)
+    wp = TW.WindowedPairs.from_csr(
+        csr, block_rows=128, chunk_cols=128, pairs_per_step=16,
+        reorder=None, beat_gather_margin=1e9, max_inflation=1e9,
+        phase_layout=True)
+    assert wp.phases is not None and wp.spill is None
+    assert TOA.route_kernels(wp, 32) == ("B2", "B6")
+
+
+@pytest.mark.parametrize("route,per,launches,calls,ok", [
+    ((), {"B1": 0, "B7": 0}, {"B1": 0, "B7": 0}, 5, True),
+    ((), {"B1": 0, "B7": 1}, {"B1": 0, "B7": 5}, 5, False),
+    ((), {"B1": 0, "B7": 0}, {"B1": 0, "B7": 1}, 5, False),
+    (("B7",), {"B1": 0, "B7": 1}, {"B1": 0, "B7": 5}, 5, True),
+    (("B7",), {"B1": 0, "B7": 1}, {"B1": 0, "B7": 6}, 5, False),
+    (("B7",), {"B1": 0, "B7": 0}, {"B1": 0, "B7": 0}, 5, False),
+    (("B2", "B1"), {"B1": 1, "B2": 1, "B7": 1},
+     {"B1": 5, "B2": 5, "B7": 5}, 5, True),
+], ids=["coo-none", "coo-launched", "coo-stray", "b7", "b7-extra",
+        "b7-missing", "b1-b2-with-spill"])
+def test_models_bench_holds_launches_to_the_route(route, per, launches,
+                                                   calls, ok):
+    """``run_models_bench``'s launch check: a route with kernels launches
+    each of them, exactly one multiply's per call; a route with none (COO)
+    launches nothing."""
+    from sparsematrixmultiplicationmpi_tpu_torch.scripts import (
+        run_models_bench,
+    )
+
+    assert run_models_bench._launched_per_multiply(
+        launches, per, calls, route) is ok
+
+
+# ---- member-level parity ------------------------------------------------
+
+#: Every place where the port's surface departs from the JAX package's,
+#: with its reason. A key names a module of the JAX package that the
+#: port does not have (``utils/backend.py``), a public function or class
+#: missing from the port's module of the same path (``file::name``), the
+#: public members missing from a class (``file::Class.{a, b}``) or the
+#: parameters missing from a function or method (``file::fn(a, b)``).
+#: ``ROADMAP.md``'s "Divergences by design" lists the same keys.
+PARITY_DIVERGENCES = {
+    "utils/backend.py": "it probes JAX's backend for Mosaic interpret "
+    "mode; in the port each route follows its tensors' device",
+    "ops/pallas_windowed.py": "the Pallas kernels B1-B4 and B6; the port's "
+    "are CUDA C++ in csrc/windowed_kernels.cu, bound in "
+    "ops/cuda_windowed.py",
+    "ops/pallas_banded.py": "the Pallas band kernel B5; the port's is "
+    "csrc/banded_kernels.cu, bound in ops/cuda_banded.py",
+    "ops/pallas_gather.py": "the Pallas gather kernel B7; the port's is "
+    "csrc/gather_kernels.cu, bound in ops/cuda_gather.py",
+    "ops/_gather_calib.py": "the gather records; the port keeps them in "
+    "formats/_gather_calib.py beside the card's (_gather_calib_h100.py), "
+    "where the cost tables read them",
+    "ops/library.py::to_bcoo": "BCOO is JAX's; ported as to_torch_sparse",
+    "ops/library.py::spmm_bcoo": "BCOO is JAX's; ported as spmm_library",
+    "utils/collectives.py::compiled_hlo": "the port counts bytes around "
+    "its collectives instead of parsing HLO",
+    "utils/collectives.py::collective_stats(hlo_text)": "the counts are "
+    "the collectives' own, so there is no HLO text to read",
+    "io/mtx.py::read_matrix_market(use_native)": "the native parser where "
+    "it builds, else numpy; read_matrix_market_numpy is the explicit "
+    "numpy reader",
+    "ops/auto.py::spmm_any(use_pallas)": "the route follows v's device: "
+    "CUDA tensors take the kernels, CPU tensors their plain versions",
+    "ops/windowed.py::spmm_windowed(use_pallas)": "the route follows v's "
+    "device, as spmm_any's",
+    "ops/windowed.py::spmm_windowed_core(use_pallas)": "the route follows "
+    "v_p's device, as spmm_any's",
+    "ops/windowed.py::windowed_t_chain(interpret)": "Pallas interpret mode "
+    "has no counterpart: the chain follows the operand's device",
+    "models/gcn.py::init_gcn(key)": "a torch.Generator (generator=) in "
+    "place of a JAX PRNG key",
+    "models/gat.py::init_gat(key)": "a torch.Generator (generator=) in "
+    "place of a JAX PRNG key",
+    "parallel/mesh.py::make_mesh(devices, axis_name)": "a process group "
+    "(n_devices, device) in place of a jax.sharding.Mesh of devices and "
+    "named axes",
+    "parallel/mesh.py::make_mesh_2d(devices, axis_names)": "a process "
+    "group split into rows and columns (n_row, n_col, device)",
+    "parallel/mesh.py::initialize_distributed(**kwargs)": "torch."
+    "distributed takes its rank, world size and address explicitly "
+    "(rank, world_size, init_method, device)",
+    "parallel/windowed_strategy.py::WindowedRowOperand.{block_ptr, "
+    "pair_chunk, pair_pos, tiles, tiles_split}": "a rank holds its "
+    "share as one WindowedPairs (pairs: tiles, tiles_split, pair_chunk, "
+    "pair_block, block_ptr)",
+    "utils/profiling.py::trace(create_perfetto_link)": "torch.profiler "
+    "writes a Chrome trace (log_dir/trace.json); there is no Perfetto "
+    "link to make",
+    "utils/timing.py::time_fn(*args, **kwargs)": "time_fn(fn, device) "
+    "times a closure on a device's clock (CUDA events on the card) "
+    "instead of a jitted function's arguments",
+    "utils/timing.py::measure_amortized(calibrate)": "the chain's slope "
+    "between two lengths is always taken: eager calls have no "
+    "per-dispatch envelope to calibrate away",
+    "utils/timing.py::time_fn_amortized(calibrate)": "as "
+    "measure_amortized",
+}
+
+JAX_ROOT = J.__name__
+
+
+def _jax_modules():
+    import pkgutil
+
+    return [JAX_ROOT] + [m.name for m in pkgutil.walk_packages(
+        J.__path__, JAX_ROOT + ".")]
+
+
+def _path(mod_name: str) -> str:
+    """The JAX module's file, relative to its package."""
+    rel = mod_name[len(JAX_ROOT):].lstrip(".").replace(".", "/")
+    import importlib
+
+    is_pkg = hasattr(importlib.import_module(mod_name), "__path__")
+    return f"{rel}/__init__.py".lstrip("/") if is_pkg else f"{rel}.py"
+
+
+def _public_members(cls) -> set:
+    """A class's public methods, properties, attributes and dataclass
+    fields, its bases' within either package included."""
+    names = set()
+    for klass in cls.__mro__:
+        if klass.__module__.split(".")[0] in (JAX_ROOT, T.__name__):
+            names.update(n for n in vars(klass) if not n.startswith("_"))
+    if dataclasses.is_dataclass(cls):
+        names.update(f.name for f in dataclasses.fields(cls)
+                     if not f.name.startswith("_"))
+    return names
+
+
+def _missing_params(jfn, tfn) -> list:
+    import inspect
+
+    try:
+        jps = inspect.signature(jfn).parameters.values()
+        tps = inspect.signature(tfn).parameters
+    except (TypeError, ValueError):
+        return []
+    star = {inspect.Parameter.VAR_POSITIONAL: "*",
+            inspect.Parameter.VAR_KEYWORD: "**"}
+    return [star.get(p.kind, "") + p.name for p in jps
+            if p.name not in tps and p.name not in ("self", "cls")]
+
+
+def _gaps(mod_name: str) -> set:
+    """The keys of every place where the port departs from the JAX
+    module ``mod_name`` (see ``PARITY_DIVERGENCES``)."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module(mod_name)
+    path = _path(mod_name)
+    port_name = T.__name__ + mod_name[len(JAX_ROOT):]
+    try:
+        tmod = importlib.import_module(port_name)
+    except ModuleNotFoundError as e:
+        if e.name != port_name:
+            raise
+        return {path}
+    gaps = set()
+    for name in getattr(jmod, "__all__", []):
+        if not hasattr(tmod, RENAMES.get(name, name)):
+            obj = getattr(jmod, name)
+            where = getattr(obj, "__module__", mod_name)
+            gaps.add(f"{_path(where)}::{name}")
+    for name, obj in vars(jmod).items():
+        if name.startswith("_") or not (
+                inspect.isfunction(obj) or inspect.isclass(obj)) or (
+                obj.__module__ != mod_name):
+            continue
+        if not hasattr(tmod, name):
+            gaps.add(f"{path}::{name}")
+            continue
+        tobj = getattr(tmod, name)
+        if inspect.isfunction(obj):
+            missing = _missing_params(obj, tobj)
+            if missing:
+                gaps.add(f"{path}::{name}({', '.join(missing)})")
+            continue
+        tmembers = _public_members(tobj)
+        absent = [m for m in sorted(_public_members(obj))
+                  if m not in tmembers]
+        if absent:
+            gaps.add(f"{path}::{name}.{{{', '.join(absent)}}}")
+        for member in sorted(_public_members(obj) & tmembers):
+            jm = inspect.getattr_static(obj, member, None)
+            if isinstance(jm, (classmethod, staticmethod)):
+                jm = jm.__func__
+            if inspect.isfunction(jm):
+                missing = _missing_params(jm, getattr(tobj, member))
+                if missing:
+                    gaps.add(f"{path}::{name}.{member}"
+                             f"({', '.join(missing)})")
+    return gaps
+
+
+@pytest.mark.parametrize("mod_name", _jax_modules())
+def test_every_jax_member_exists_in_the_port(mod_name):
+    """Each public function and class of the JAX module, each public
+    method, property and field of its classes, each parameter of its
+    functions and methods, and each name of its ``__all__`` exists in the
+    port's module of the same path, but for ``PARITY_DIVERGENCES``."""
+    unlisted = _gaps(mod_name) - set(PARITY_DIVERGENCES)
+    assert not unlisted, f"the port lacks {sorted(unlisted)}"
+
+
+def test_parity_allow_list_holds_only_divergences():
+    """Every allow-list entry is still a gap: an entry goes when the port
+    gains what it names."""
+    found = set().union(*(_gaps(m) for m in _jax_modules()))
+    assert set(PARITY_DIVERGENCES) - found == set()
+
+
+def test_parity_allow_list_is_the_roadmaps():
+    """``ROADMAP.md``'s allow-list (the indented ``- `key`:`` lines under
+    "The parity test's allow-list") names the same entries."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parents[1]
+            / "ROADMAP.md").read_text()
+    start = text.index("**The parity test's allow-list**")
+    block = text[start:].split("\n- ", 1)[0]
+    listed = [re.sub(r"\s+", " ", key) for key in
+              re.findall(r"^  - `([^`]+)`:", block, re.M)]
+    assert len(listed) == len(set(listed))
+    assert set(listed) == set(PARITY_DIVERGENCES)

@@ -1,8 +1,10 @@
-"""Card-only tests of the command line: ``run --strategy all`` on a small
-FEM matrix gives "Results are the same!" for every strategy with B2 and
-B1 launched; a ``convert`` to the band format and a ``run`` of the file
-launch B5 once per multiply; a card sweep resumes without running a job
-again.
+"""Card-only tests of the command line: ``run --strategy all`` on the small
+cop20k stand-in gives "Results are the same!" for every strategy, and
+its ``auto`` and ``column`` multiplies launch the kernels of the route
+``auto`` took there (``ops/auto.py::route_kernels``: bucketed ELL's B7
+under the H100 cost table), one multiply's each, and no other kernel; a
+``convert`` to the band format and a ``run`` of the file launch B5 once
+per multiply; a card sweep resumes without running a job again.
 
 Every test needs an NVIDIA GPU and ``nvcc`` and skips from inside the
 ``cuda`` fixture elsewhere. The file imports no JAX:
@@ -18,8 +20,14 @@ import torch
 from sparsematrixmultiplicationmpi_tpu_torch.bench.harness import read_csv
 from sparsematrixmultiplicationmpi_tpu_torch.cli import main as cli_main
 from sparsematrixmultiplicationmpi_tpu_torch.ops import (
-    cuda_banded, cuda_windowed,
+    cuda_banded, cuda_gather, cuda_windowed,
 )
+from sparsematrixmultiplicationmpi_tpu_torch.ops.auto import (
+    route_kernels, spmm_any,
+)
+from sparsematrixmultiplicationmpi_tpu_torch.parallel import strategies
+
+KERNEL_MODULES = (cuda_windowed, cuda_banded, cuda_gather)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,11 +40,32 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_run_all_strategies_on_the_card(cuda, tmp_path, capsys):
-    cuda_windowed.reset_launch_counts()
+def _reset_counts():
+    for mod in KERNEL_MODULES:
+        mod.reset_launch_counts()
+
+
+def _counts() -> dict:
+    return {name: n for mod in KERNEL_MODULES
+            for name, n in mod.launch_counts().items()}
+
+
+def test_run_all_strategies_on_the_card(cuda, tmp_path, capsys,
+                                        monkeypatch):
+    prepared = []
+
+    class RecordedAuto(strategies.Auto):
+        def prepare(self, csr, mesh):
+            op = super().prepare(csr, mesh)
+            prepared.append(op)
+            return op
+
+    monkeypatch.setitem(strategies.STRATEGIES, "auto", RecordedAuto)
+    _reset_counts()
     rc = cli_main(["run", "synthetic:cop20k_small", "--k", "32",
                    "--iters", "2", "--warmup", "1",
                    "--json", str(tmp_path / "r.json")])
+    counts = _counts()
     out = capsys.readouterr().out
     assert rc == 0, out
     assert out.count("Results are the same!") == 5
@@ -44,8 +73,17 @@ def test_run_all_strategies_on_the_card(cuda, tmp_path, capsys):
     name = torch.cuda.get_device_name(0)
     assert all(r["correct"] is True and r["device_kind"] == name
                for r in payload["records"])
-    counts = cuda_windowed.launch_counts()
-    assert counts["B1"] > 0 and counts["B2"] > 0
+    # ``auto`` and ``column`` (the same pick on one rank) take the route
+    # ``auto`` took: one warm-up and two timed multiplies each.
+    assert len(prepared) == 1
+    op = prepared[0]
+    route = route_kernels(op, 32)
+    assert route, f"auto took {type(op).__name__}, a route with no kernel"
+    _reset_counts()
+    spmm_any(op, torch.zeros((op.shape[1], 32), device=cuda))
+    per = _counts()
+    assert all(per[k] > 0 for k in route), (route, per)
+    assert counts == {k: 6 * n for k, n in per.items()}, (route, counts)
 
 
 def test_convert_then_prepared_run_launches_b5(cuda, tmp_path, capsys):

@@ -4,7 +4,10 @@ B2 + B3 / B4 (U = 2) where the reference took its dense plain route.
 Each kernel against its plain version at k8 = 8, each route's launches
 and its result against the host f64 oracle, the transposed chain at
 k = 1, and PageRank (k = 1) on a small cop20k stand-in: one B2 and one
-B1 an iteration, ranks against a host float64 power iteration.
+B1 an iteration, ranks against a host float64 power iteration. The
+models benchmark at ``--scale 0.05``, where the H100 table prices
+PageRank's graph to COO (no hand-written kernel: none may launch), and
+at ``--scale 0.5``, where it takes bucketed ELL (one B7 an iteration).
 
 Every test skips without a CUDA device. The file imports no JAX:
 
@@ -12,6 +15,7 @@ Every test skips without a CUDA device. The file imports no JAX:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -172,3 +176,16 @@ def test_models_bench_on_the_card_small(cuda, tmp_path):
     assert run_models_bench.main([
         "--out-dir", str(tmp_path), "--scale", "0.05"]) == 0
     assert (tmp_path / "models_h100.json").exists()
+
+
+def test_models_bench_on_the_card_at_a_kernel_route(cuda, tmp_path,
+                                                    capsys):
+    """At half size PageRank's graph takes bucketed ELL: the script holds
+    its B7 launches to one multiply's an iteration."""
+    assert run_models_bench.main([
+        "--out-dir", str(tmp_path), "--scale", "0.5"]) == 0
+    checked = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    route = checked["checks"]["pagerank_route"]
+    assert route == {"format": "BucketedELL", "kernels": ["B7"]}, route
+    assert checked["checks"]["pagerank_one_multiply_per_iteration"] is True
+    assert checked["launches"]["pagerank"]["B7"] > 0
