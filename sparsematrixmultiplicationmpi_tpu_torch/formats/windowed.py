@@ -30,6 +30,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import phase
 from .cost import V5E, CostTable, cost_table_for
 from .matrix import (
     BucketedELL, CSR, ELL, array_dtype, cast, host_values, to_tensor,
@@ -1032,7 +1033,8 @@ class WindowedPairs:
     def to(self, device) -> "WindowedPairs":
         """A copy whose arrays are torch tensors on ``device`` (bf16
         planes as ``torch.bfloat16``). A CUDA copy holds ``card_planes``
-        (its ``CompactTiles`` built here on the host, once per operand).
+        (its ``CompactTiles`` built here on the host, once per operand, in
+        the phase ``format.card_planes`` of ``utils/profiling.py``).
         The host arrays are left as they are.
 
         Moving a U=2 operand to a CUDA device audits, on the host arrays,
@@ -1049,7 +1051,8 @@ class WindowedPairs:
                     "two-pair kernel contract violated: per-block pair "
                     "runs must be padded to even length "
                     "(WindowedPairs.from_csr pairs_per_step=2 branch)")
-            src = self.card_planes()
+            with phase("format.card_planes"):
+                src = self.card_planes()
         fields = {}
         for f in self._ARRAYS:
             x = getattr(src, f)

@@ -3,6 +3,9 @@
 
 The reference's ``lax.while_loop`` becomes a Python loop that tests the
 same condition before each body, reading one scalar back per iteration.
+Each iteration's update and that read are spans (``utils/profiling.py``)
+named ``pagerank.update`` and ``pagerank.converged``; the multiply is in
+neither.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from ..formats.matrix import CSR
+from ..utils.profiling import span
 
 __all__ = ["pagerank", "power_iteration", "normalize_columns"]
 
@@ -39,13 +43,26 @@ def pagerank(spmm: Callable[[torch.Tensor], torch.Tensor], n: int, *,
     r = torch.full((n, 1), 1.0 / n, dtype=dtype, device=device)
     delta = torch.tensor(float("inf"), dtype=dtype, device=device)
     i = 0
-    while i < max_iter and bool(delta > tol):
-        r_new = damping * spmm(r) + (1.0 - damping) / n
-        r_new = r_new / r_new.sum()
-        delta = (r_new - r).abs().max()
+    while i < max_iter and _above(delta, tol):
+        y = spmm(r)
+        with span("pagerank.update"):
+            r_new = damping * y
+            # Free the product before the next allocation, as one
+            # expression ``damping * spmm(r) + ...`` does.
+            del y
+            r_new = r_new + (1.0 - damping) / n
+            r_new = r_new / r_new.sum()
+            delta = (r_new - r).abs().max()
         r = r_new
         i += 1
     return r[:, 0], i
+
+
+def _above(delta: torch.Tensor, tol: float) -> bool:
+    """The loop's test, ``delta > tol`` read back to the host: on the
+    card the host waits here for the iteration's work."""
+    with span("pagerank.converged"):
+        return bool(delta > tol)
 
 
 def power_iteration(spmm: Callable[[torch.Tensor], torch.Tensor], n: int, *,

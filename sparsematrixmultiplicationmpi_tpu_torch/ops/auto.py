@@ -37,6 +37,7 @@ from ..formats.cost import V5E, CostTable, cost_table_for, dispatch_table
 from ..formats.hub import HubExtracted, split_hub_columns
 from ..formats.matrix import COO, BucketedELL, CSR
 from ..formats.windowed import WindowedPairs
+from ..utils.profiling import phase
 from .banded import spmm_banded
 from .ell import spmm_bucketed
 
@@ -188,26 +189,31 @@ def route_candidates(csr: CSR, *, reorder: str | None = "auto",
     operand)`` in the search's order: ``"bucketed_ell"``, ``"coo"``, the
     best ``"windowed"`` tiling and ``"banded"`` (each None where its
     build declines), priced as ``auto_format`` prices them. The COO
-    operand is ``csr.to_coo()``."""
+    operand is ``csr.to_coo()``. The builds are phases
+    (``utils/profiling.py``): ``format.rivals`` the gather formats, the
+    band and the COO, ``format.windowed`` the windowed tiling search."""
     table = cost_table_for(device, cost_table)
     k_nominal = format_kwargs.get("k_nominal", 32)
-    ests = gather_class_estimates(csr, k_nominal=k_nominal,
-                                  cost_table=table)
+    with phase("format.rivals"):
+        ests = gather_class_estimates(csr, k_nominal=k_nominal,
+                                      cost_table=table)
+        bb = BandedBlocks.from_csr(
+            csr, **{**_route(BandedBlocks.from_csr, format_kwargs),
+                    "cost_table": table})
+        coo = csr.to_coo()
     best_gather = min(ests.values(), key=lambda t: t[0])[0]
     # The windowed build gate compares against this matrix's real gather
     # estimate.
     wp_kwargs = _route(WindowedPairs.from_csr, format_kwargs)
     wp_kwargs.setdefault("gather_baseline_s", best_gather)
     wp_kwargs["cost_table"] = table
-    wp = WindowedPairs.from_csr(csr, reorder=reorder, **wp_kwargs)
-    bb = BandedBlocks.from_csr(
-        csr, **{**_route(BandedBlocks.from_csr, format_kwargs),
-                "cost_table": table})
+    with phase("format.windowed"):
+        wp = WindowedPairs.from_csr(csr, reorder=reorder, **wp_kwargs)
     wp_est = None
     if wp is not None:
         wp_est = wp.est_seconds + (table.one_shot_s if one_shot else 0.0)
     return [("bucketed_ell", ests["bucketed_ell"][0], ests["bucketed_ell"][1]),
-            ("coo", ests["coo"][0], csr.to_coo()),
+            ("coo", ests["coo"][0], coo),
             ("windowed", wp_est, wp),
             ("banded", None if bb is None else bb.est_seconds, bb)]
 

@@ -30,6 +30,7 @@ import torch
 
 from ..formats.cost import dispatch_table
 from ..formats.windowed import WindowedPairs
+from ..utils.profiling import span
 from .ell import stack_bucketed
 
 __all__ = ["spmm_windowed", "spmm_windowed_core", "spmm_windowed_xla",
@@ -105,7 +106,8 @@ def spmm_windowed_core(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     """Padded-permuted-space SpMM: the plain path for a CPU tensor. For a
     CUDA tensor the kernels wherever ``_takes_kernels`` says so, ``k``
     zero-padded to a multiple of 8: B2 then B1 (B6 on a phase layout) for
-    U>2, B2 then B3 (split f32 planes) or B4 (one plane) for U=2."""
+    U>2, B2 then B3 (split f32 planes) or B4 (one plane) for U=2. The
+    zero-pad is the span ``windowed.pad`` (``utils/profiling.py``)."""
     k = v_p.shape[1]
     k_pad = (-k) % 8
     if v_p.device.type == "cpu" or not _takes_kernels(wp, k, v_p.device):
@@ -113,8 +115,9 @@ def spmm_windowed_core(wp: WindowedPairs, v_p: torch.Tensor) -> torch.Tensor:
     from .cuda_windowed import spmm_windowed_cuda
 
     if k_pad:
-        v_wide = torch.cat([v_p, v_p.new_zeros((v_p.shape[0], k_pad))],
-                           dim=1)
+        with span("windowed.pad"):
+            v_wide = torch.cat([v_p, v_p.new_zeros((v_p.shape[0], k_pad))],
+                               dim=1)
         return spmm_windowed_cuda(wp, v_wide)[:, :k]
     return spmm_windowed_cuda(wp, v_p)
 

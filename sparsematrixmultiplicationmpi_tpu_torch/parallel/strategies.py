@@ -46,6 +46,7 @@ from ..formats.matrix import CSR, ELL, split_csr_by_width, to_tensor
 from ..ops.ell import take_rows
 from ..ops.oracle import spmm_coo
 from ..utils import collectives as coll
+from ..utils.profiling import phase
 from .mesh import Mesh, as_mesh
 
 __all__ = [
@@ -410,8 +411,10 @@ class Auto(Strategy):
         mesh = as_mesh(mesh)
         if mesh.size > 1:
             return self._mesh_route(csr, mesh.device).prepare(csr, mesh)
-        return auto_format(csr, device=mesh.device,
-                           **self.format_kwargs).to(mesh.device)
+        op = auto_format(csr, device=mesh.device, **self.format_kwargs)
+        # The move to the device is a phase of its own (utils/profiling.py).
+        with phase("format.place", sync=mesh.device):
+            return op.to(mesh.device)
 
     def _mesh_route(self, csr: CSR, device=None) -> Strategy:
         """The row-sharded strategy the single-chip cost model picks, with
