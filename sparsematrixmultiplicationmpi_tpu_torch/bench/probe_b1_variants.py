@@ -20,9 +20,11 @@ registers and spills of the timed kernels printed) and checked against
 the plain version (within 1e-5 * cond + 1e-6) and against the package's
 own library, bit for bit:
 
-* default: B1 on the cop20k main-path operand (the fused state bitwise
-  equal to the split of its unfused sum) and B6 on the phased operand
-  (``Auto(phase_layout=True)``), then timed at k = 32, B1 fused;
+* default: B1 on the cop20k main-path operand at k8 = 8, 16 and 32
+  (unfused, and fused where k8 % 16 == 0: the fused state bitwise equal
+  to the split of its unfused sum) and B6 on the phased operand
+  (``Auto(phase_layout=True)``) at k = 32, then timed: B1 fused at
+  k = 32, B1 unfused at k8 = 8 (a k = 1 chain body's) and B6;
 * ``--natural``: B3 on the cop20k ``Auto(pairs_per_step=2)`` f32 operand
   (R = C = 256) and B4 on its bf16 build (R = C = 512), each on the
   card copy's natural compact plane; a parent without the compact
@@ -55,6 +57,7 @@ from ..utils.timing import time_region
 
 SRC = os.path.join(_kernel_lib.CSRC_DIR, "windowed_kernels.cu")
 K = 32
+B1_WIDTHS = (8, 16, 32)  # the k8 at which B1 is checked
 
 #: name -> the constants it sets (the package's values elsewhere).
 VARIANTS = {
@@ -223,8 +226,8 @@ def _compact_args(ct):
 
 
 def probe_b1(libs: dict, dev) -> dict:
-    """B1 (fused and unfused) and B6 of every variant, checked and
-    timed."""
+    """B1 (fused and unfused, k8 = 8, 16 and 32) and B6 of every variant,
+    checked and timed."""
     from ..ops.cuda_windowed import _phase_table
     from ..parallel import Auto
 
@@ -233,21 +236,23 @@ def probe_b1(libs: dict, dev) -> dict:
                          .astype(np.float32)).to(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     wp = auto_format(csr).to(dev)
-    slabs = cw.chunk_slabs(wp.encode(v).contiguous(), C=wp.chunk_cols,
-                           split=True)
     ct, nb, R, C = wp.tiles_t, wp.n_blocks, wp.block_rows, wp.chunk_cols
     dense = ct.to_dense()
     plain = (wp.pair_block, wp.pair_chunk)
-    want = cw.windowed_matmul_tmulti_plain(*plain, dense, slabs, nb=nb)
-    cond = cw.windowed_matmul_tmulti_plain(*plain, dense.abs(), slabs.abs(),
-                                           nb=nb)
+    cases = {}
+    for k in B1_WIDTHS:
+        slabs = cw.chunk_slabs(wp.encode(v[:, :k].contiguous()).contiguous(),
+                               C=C, split=True)
+        cases[k] = (slabs, cw.windowed_matmul_tmulti_plain(
+            *plain, dense, slabs, nb=nb), cw.windowed_matmul_tmulti_plain(
+            *plain, dense.abs(), slabs.abs(), nb=nb))
     del dense
 
-    def b1(lib, out, fuse):
+    def b1(lib, out, k, fuse):
         return _launch(lib.tmulti_launch, wp.block_ptr.data_ptr(),
                        wp.pair_chunk.data_ptr(), *_compact_args(ct),
-                       slabs.data_ptr(), out.data_ptr(), nb, C, R, K, 1,
-                       int(fuse), stream)
+                       cases[k][0].data_ptr(), out.data_ptr(), nb, C, R, k,
+                       1, int(fuse), stream)
 
     ph = Auto(phase_layout=True).prepare(csr, dev)
     ph_slabs = cw.chunk_slabs(ph.encode(v).contiguous(), C=C, split=True)
@@ -271,23 +276,34 @@ def probe_b1(libs: dict, dev) -> dict:
 
     res, ref = {}, {}
     for name, lib in libs.items():
-        unfused = torch.empty((nb, K, R), dtype=torch.float32, device=dev)
-        fused = torch.empty((nb, K, 2 * R), dtype=torch.bfloat16, device=dev)
+        for k, (_, want, cond) in cases.items():
+            unfused = torch.empty((nb, k, R), dtype=torch.float32, device=dev)
+            b1(lib, unfused, k, False)()
+            _check(res, name, f"B1 k8={k}", unfused, want, cond,
+                   ref.get(f"b1 {k}"))
+            if name == "package":
+                ref[f"b1 {k}"] = unfused
+            if k % 16:
+                continue
+            fused = torch.empty((nb, k, 2 * R), dtype=torch.bfloat16,
+                                device=dev)
+            b1(lib, fused, k, True)()
+            same = torch.equal(fused.view(torch.int16),
+                               cw.resplit_slabs(unfused).view(torch.int16))
+            res[name]["correct"] &= same
+            res[name][f"B1 fused k8={k} equals resplit(unfused)"] = same
         part = torch.empty((n_part, K, R), dtype=torch.float32, device=dev)
-        b1(lib, unfused, False)()
-        b1(lib, fused, True)()
         b6(lib, part)()
-        _check(res, name, "B1", unfused, want, cond, ref.get("b1"))
-        res[name]["correct"] &= torch.equal(
-            fused.view(torch.int16),
-            cw.resplit_slabs(unfused).view(torch.int16))
         _check(res, name, "B6", part, ph_want, ph_cond, ref.get("b6"))
         if name == "package":
-            ref = {"b1": unfused, "b6": part}
+            ref["b6"] = part
     b1_out = torch.empty((nb, K, 2 * R), dtype=torch.bfloat16, device=dev)
+    k1_out = torch.empty((nb, 8, R), dtype=torch.float32, device=dev)
     b6_out = torch.empty((n_part, K, R), dtype=torch.float32, device=dev)
     for kernel, runs in (
-            ("ms", {n: b1(lib, b1_out, True) for n, lib in libs.items()}),
+            ("ms", {n: b1(lib, b1_out, K, True) for n, lib in libs.items()}),
+            ("k8=8 unfused ms", {n: b1(lib, k1_out, 8, False)
+                                 for n, lib in libs.items()}),
             ("b6_ms", {n: b6(lib, b6_out) for n, lib in libs.items()})):
         for name, ms in _time_rounds(runs, dev).items():
             res[name][kernel] = ms

@@ -39,35 +39,50 @@
 //   entry and k, below) take >= 0.005 ms on the CUDA cores. The work a
 //   CTA really does is larger: it stages every pair's whole slab (k8 x
 //   2C, 16 KB) from L2 into shared memory, 169 MB a multiply, and each
-//   entry costs shared loads (its record, its column, the slab words of
-//   its c) and two FMAs for each of the k8 rows.
+//   entry costs shared loads (its record, the slab words of its c) and
+//   two FMAs for each of the k8 rows. On the H100 the instructions of
+//   the walk set the time: three CTAs an SM hide one another's copies
+//   from L2, and the SM issues ~2 of its 4 instructions a cycle. Each
+//   instruction taken from an entry's path moved B1 by ~1 % (PERF.md).
 //
 //   Design. The CTA walks windows of up to kCap entries of its columns,
 //   a pair at a time (a denser tile takes several windows). Per window
 //   it stages the slab transposed and interleaved, word [c][kk] = hi |
 //   lo << 16, kk XOR-swizzled by multiples of 4 so that both the copy's
 //   stores and the reads of one c are free of bank conflicts, and one
-//   record per entry (the swizzled offset of c and the tile bits) with
-//   the entry's column. 32 workers of eight lanes then split the
-//   window's entries into even runs, each moved to a column start so
-//   that no column is shared (each column thread finds the workers whose
-//   share begins in its column with one division, no search), and walk
-//   them two entries at a time: a lane holds four rows kk, so one 128-bit
-//   shared load brings its four slab words and one warp instruction
-//   serves four entries; a running sum per column is added to the
-//   column's accumulator in shared memory when the column changes. So
-//   the work is balanced whatever the tile's column counts (2 per column
-//   on average, at most 26), and the code has one loop body. split3's
-//   sh.th + sh.tl + sl.th is summed as sh.(th + tl) + sl.th: th + tl is
-//   the tile's f32 value, exact, so the products are the same with one
-//   rounding fewer. The next window's slab unit, entries and column
-//   bounds are loaded into registers while a window is computed, the
-//   run's pair indices sit in shared memory, and two stage buffers let
-//   one barrier per window separate a buffer's reads from its next
-//   writes. Registers set the shape: three CTAs an SM leave 80 a thread,
-//   and a wider batch or deeper prefetch spills. On the H100 the time is
-//   far above the byte bound: the per-window staging and each CTA's
-//   chain of windows set it (bench/probe_b1.py, PERF.md).
+//   record per entry: the tile bits, and in one word the byte offset of
+//   its c's words in the slab with the entry's column above it (written
+//   as two half-words, by the entry's thread and the column's). 32
+//   workers of eight lanes then split the window's entries into even
+//   runs, each moved to a column start so that no column is shared (each
+//   column thread finds the workers whose share begins in its column
+//   with one division, no search), and walk them two entries at a time:
+//   a lane holds four rows kk, so one 64-bit shared load brings an
+//   entry's record and one 128-bit load the lane's four slab words at the
+//   record's offset XOR the lane's rows, and one warp instruction serves
+//   four entries; a running sum per column is added to the column's
+//   accumulator in shared memory when the column changes. While every
+//   worker of a warp has two entries left, none is checked against its
+//   run's end. So the work is balanced whatever the tile's column counts
+//   (2 per column on average, at most 26), and the sums are the same, bit
+//   for bit, whatever the split. split3's sh.th + sh.tl + sl.th is summed
+//   as sh.(th + tl) + sl.th: th + tl is the tile's f32 value, exact, so
+//   the products are the same with one rounding fewer. The next window's
+//   slab unit, entries and column bounds are loaded into registers while
+//   a window is computed, the run's pair indices sit in shared memory,
+//   and two stage buffers let one barrier per window separate a buffer's
+//   reads from its next writes. Registers set the shape: three CTAs an SM
+//   leave 80 a thread, and a wider batch or deeper prefetch spills.
+//
+//   Copying each pair's slab through a ring of shared-memory stages ahead
+//   of the walk was built and measured three ways, all bit for bit the
+//   same and all slower (bench/probe_b1_variants.py, PERF.md): producer
+//   warps beside the walkers, fed through registers (they spill and wait
+//   out the copy, 0.125-0.131 ms against 0.121) or by one bulk copy a
+//   pair into landing buffers (0.129-0.138; two CTAs an SM fit), and all
+//   warps transposing from bulk-copied landing buffers at three CTAs an
+//   SM (0.129): the copy from shared memory costs more instructions than
+//   the copy from registers, and no latency was left to hide.
 //
 //   Stored zeros are never multiplied: an Inf or NaN in the fat vector
 //   reaches only the outputs of the entries that read it, as in a CSR
@@ -146,7 +161,7 @@
 //   less on the CUDA cores. As for B1, the work a CTA really does is
 //   larger: it stages each pair's whole slab (32 KB at these shapes) from
 //   L2 for ~500 entries of its rows. At C = 256 split or C = 512 bf16 a
-//   CTA takes 101,640 B of shared memory, so two CTAs share an SM
+//   CTA takes 99,616 B of shared memory, so two CTAs share an SM
 //   (kNaturalCtas), and each thread may hold 128 registers: the whole
 //   next slab is prefetched into registers while a window is computed
 //   (kNaturalPrefetch), where B1 (three CTAs an SM) prefetches an eighth
@@ -203,6 +218,7 @@
 
 #include <atomic>
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -247,7 +263,7 @@ constexpr int kTmultiCtas = 3;          // CTAs per SM (launch bounds)
 // pair boundary cost B1 1.7 % (bench/probe_b1_variants.py).
 constexpr bool kTmultiSkip = false;
 // B3 / B4 bf16 on the compact natural plane (tmulti_natural_kernel): the
-// same body at R, C = 256 (split) or 512 (bf16), where a CTA's 101,640 B of
+// same body at R, C = 256 (split) or 512 (bf16), where a CTA's 99,616 B of
 // shared memory leave room for two CTAs an SM, so up to 128 registers a
 // thread: more entries a batch, and the whole 32 KB slab of a window
 // prefetched into registers (kNaturalPrefetch bytes a thread). Their
@@ -283,13 +299,18 @@ struct WordOf<true> {
   using T = uint32_t;
 };
 
-// Two stage buffers (a slab, kCap 8-byte entry records, the workers'
-// run bounds and kCap column ids each) and the accumulators.
+// One staged window: the slab (C x kCKS words), kCap 8-byte entry
+// records and the workers' run bounds (kWorkers + 1, padded to 16 B).
+template <bool SPLIT>
+__host__ __device__ constexpr int window_bytes(int C) {
+  return C * kCKS * static_cast<int>(sizeof(typename WordOf<SPLIT>::T)) +
+         kCap * 8 + (kWorkers + 4) * 4;
+}
+
+// Two window buffers, the accumulators and the pair indices.
 template <bool SPLIT>
 constexpr int tmulti_smem_bytes(int C) {
-  return 2 * (C * kCKS * static_cast<int>(sizeof(typename WordOf<SPLIT>::T)) +
-              kCap * 9 + (kWorkers + 1) * 4) +
-         kCRS * kCKS * 4 + kSeg * 16;
+  return 2 * window_bytes<SPLIT>(C) + kCRS * kCKS * 4 + kSeg * 16;
 }
 
 // An N-byte vector: one shared-memory load or store.
@@ -308,12 +329,13 @@ struct Bits<16> {
   using T = uint4;
 };
 
-// A lane's kQ staged slab words from index i (a multiple of kQ).
+// A lane's kQ staged slab words at byte offset `at` of the slab (a
+// multiple of kQ words).
 template <typename Word>
-__device__ __forceinline__ void load_words(const Word* s, int i,
-                                           Word (&w)[kQ]) {
+__device__ __forceinline__ void load_words(const unsigned char* s,
+                                           unsigned at, Word (&w)[kQ]) {
   using V = typename Bits<kQ * sizeof(Word)>::T;
-  const V v = *reinterpret_cast<const V*>(s + i);
+  const V v = *reinterpret_cast<const V*>(s + at);
   memcpy(w, &v, sizeof v);
 }
 
@@ -429,120 +451,60 @@ __device__ __forceinline__ void split_rn(float x, unsigned& hi,
   lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __bfloat162float(h)));
 }
 
-// One CTA's share of an output block of B1 / B6 / B3 / B4 bf16: the
-// pairs [p_begin, p_end) (indices into the compact plane and pair_chunk),
-// slabs at chunk_base + pair_chunk[p], the sum written as output block `b`
-// in the layout OUT. blockIdx.y / .z pick the k8 and R slices.
-//
-// The CTA walks windows of up to kCap entries of its columns (a tile
-// with more takes several; with SKIP, a pair with none in its columns
-// takes none: no staging, no barrier): per window it stages the slab and
-// one record per entry (the swizzled slab offset of c and the tile value)
-// with the entry's column, then the kWorkers workers (kWorkerLanes lanes each,
-// kQ rows of k8 a lane) split the window's entries into even runs, each
-// moved to a column start so that no column is shared, and walk them
-// BATCH entries at a time: a running sum per column, added to the
-// column's accumulator in shared memory when the column changes.
-// Software-pipelined: while one window is computed, PRE staging units of
-// the next window's slab and its entries are in flight to registers (the
-// rest of a wider slab is copied as it is staged), and the next pair's
-// indices, so no global load's latency sits between two windows; one
-// barrier per window, two stage buffers.
-template <bool SPLIT, int OUT, int BATCH, int PRE, bool SKIP,
-          typename ColT, typename RowT>
-__device__ __forceinline__ void tmulti_block(
-    int p_begin, int p_end, const int* __restrict__ pair_chunk,
-    int chunk_base, Compact tiles, const __nv_bfloat16* __restrict__ slabs,
-    void* __restrict__ out, int b, int C, int R, int k8) {
-  using Word = typename WordOf<SPLIT>::T;
-  constexpr int kPer = kCap / kThreads;  // entries a thread stages
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Two slab buffers (C x kCKS words), two record buffers, the
-  // accumulators [kCRS][kCKS], the pair indices, two run-bound buffers,
-  // two column-id buffers.
-  Word* s_slab = reinterpret_cast<Word*>(smem);
-  int2* s_rec = reinterpret_cast<int2*>(s_slab + 2 * C * kCKS);
-  float* s_acc = reinterpret_cast<float*>(s_rec + 2 * kCap);
-  int4* s_idx = reinterpret_cast<int4*>(s_acc + kCRS * kCKS);
-  int* s_split = reinterpret_cast<int*>(s_idx + kSeg);
-  unsigned char* s_col =
-      reinterpret_cast<unsigned char*>(s_split + 2 * (kWorkers + 1));
+// A staged window in shared memory (window_bytes): the slab, one record
+// per entry and the workers' run bounds split[0..kWorkers]. A record is
+// the entry's tile bits and, in one word, the byte offset of its c's
+// kQ-word groups in the slab (swizzled, below 2^16) with the entry's
+// column above it, so the walk takes both from one load.
+template <bool SPLIT>
+struct Window {
+  typename WordOf<SPLIT>::T* slab;
+  int2* rec;
+  int* split;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int k_base = blockIdx.y * kCKS;
-  const int ks = min(kCKS, k8 - k_base);        // multiple of 8
-  const int r_base = blockIdx.z * kCRS;
-  const int rs = min(kCRS, R - r_base);         // the CTA's columns
-  const size_t slab_row = static_cast<size_t>(SPLIT ? 2 : 1) * C;
-  const int upr = C / 16;            // staging units per slab row
-  const int n_units = kCKS * upr;    // staging units per window
-  const ColT* __restrict__ col_ptr = static_cast<const ColT*>(tiles.col_ptr);
-  const RowT* __restrict__ rows = static_cast<const RowT*>(tiles.rows);
-  const Word* __restrict__ vals = static_cast<const Word*>(tiles.vals);
+  __device__ static Window at(unsigned char* base, int C) {
+    using Word = typename WordOf<SPLIT>::T;
+    Window w;
+    w.slab = reinterpret_cast<Word*>(base);
+    w.rec = reinterpret_cast<int2*>(w.slab + C * kCKS);
+    w.split = reinterpret_cast<int*>(w.rec + kCap);
+    return w;
+  }
+};
 
-  for (int i = tid; i < kCRS * kCKS; i += kThreads) s_acc[i] = 0.f;
+// The window a CTA is on: pair q of the run [.., p_end), CTA-relative
+// entry w0 of it. The run's pair indices sit in shared memory kSeg at a
+// time (s_idx): the global offset of the pair's first entry, its chunk,
+// and the pair-relative offsets of the CTA's first and past-last entry.
+// Uniform over the CTA.
+template <bool SKIP, typename ColT>
+struct Cursor {
+  int4* s_idx;
+  const int* nz_ptr;
+  const int* pair_chunk;
+  const ColT* col_ptr;
+  int p_end, R, r_base, rs;
+  int seg0, q, w0;
 
-  auto slab_of = [&](int chunk, int kk) {
-    return slabs + ((static_cast<size_t>(chunk_base) + chunk) * k8 + k_base +
-                    kk) * slab_row;
-  };
-  // The indices of pairs [seg0, seg0 + kSeg) of the run, in shared
-  // memory: global offset of the pair's first entry, its chunk, and the
-  // pair-relative offsets of the CTA's first and past-last entry.
-  int seg0 = p_begin;
-  auto load_seg = [&]() {
-    for (int i = tid; i < kSeg && seg0 + i < p_end; i += kThreads) {
-      const int q = seg0 + i;
-      const ColT* cp = col_ptr + static_cast<size_t>(q) * (R + 1) + r_base;
-      s_idx[i] = make_int4(__ldg(tiles.nz_ptr + q), __ldg(pair_chunk + q),
+  __device__ void load_seg() {
+    for (int i = threadIdx.x; i < kSeg && seg0 + i < p_end; i += kThreads) {
+      const int p = seg0 + i;
+      const ColT* cp = col_ptr + static_cast<size_t>(p) * (R + 1) + r_base;
+      s_idx[i] = make_int4(__ldg(nz_ptr + p), __ldg(pair_chunk + p),
                            __ldg(cp), __ldg(cp + rs));
     }
-  };
-  // A window's first PRE staging units a thread (unit u = tid + i
-  // kThreads: slab row u_kk = u / upr, columns from u_c = (u % upr) * 8,
-  // found once; u_kk = kCKS past the window's units), this thread's share
-  // of its entries and, for thread r < rs, the bounds of column r's
-  // entries (CTA-relative).
-  Unit unit[PRE];
-  int u_kk[PRE], u_c[PRE];
-#pragma unroll
-  for (int i = 0; i < PRE; ++i) {
-    const int u = tid + i * kThreads;
-    u_kk[i] = u < n_units ? u / upr : kCKS;
-    u_c[i] = (u % upr) * 8;
   }
-  int e_c[kPer], e_t[kPer], col_a = 0, col_b = 0;
-  auto load_data = [&](int q, int w0) {
-    const int4 x = s_idx[q - seg0];
-#pragma unroll
-    for (int i = 0; i < PRE; ++i) {
-      if (u_kk[i] < ks) {
-        unit[i] = load_unit<SPLIT>(slab_of(x.y, u_kk[i]), u_c[i], C);
-      }
-    }
-    const int n = min(x.w - x.z - w0, kCap);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < n) {
-        e_c[i] = __ldg(rows + x.x + x.z + w0 + e);
-        e_t[i] = __ldg(vals + x.x + x.z + w0 + e);
-      }
-    }
-    if (tid < rs) {
-      const ColT* cp = col_ptr + static_cast<size_t>(q) * (R + 1) + r_base;
-      col_a = static_cast<int>(__ldg(cp + tid)) - x.z;
-      col_b = static_cast<int>(__ldg(cp + tid + 1)) - x.z;
-    }
-  };
-  // Make the segment of staged indices hold pair q and, with SKIP,
-  // advance q past the pairs with no entry in the CTA's columns (the
-  // build's padding pairs, and tiles whose entries all lie in other
-  // column slices). Uniform over the CTA: q and the indices are shared.
-  int q = p_begin, w0 = 0;  // the window: pair q, CTA-relative entry w0
-  auto find_pair = [&]() {
+  // Stage the indices from pair q on and, with SKIP, advance q past the
+  // pairs with no entry in the CTA's columns (the build's padding pairs,
+  // and tiles whose entries all lie in other column slices).
+  __device__ void start(int p_begin) {
+    seg0 = q = p_begin;
+    w0 = 0;
+    load_seg();
+    __syncthreads();
+    find_pair();
+  }
+  __device__ void find_pair() {
     for (; q < p_end; ++q) {
       if (q >= seg0 + kSeg) {  // past the staged indices
         __syncthreads();
@@ -554,111 +516,194 @@ __device__ __forceinline__ void tmulti_block(
       const int4 y = s_idx[q - seg0];
       if (y.w > y.z) break;
     }
-  };
-
-  load_seg();
-  __syncthreads();
-  find_pair();
-  if (q < p_end) load_data(q, 0);
-  for (int win = 0; q < p_end; ++win) {
-    const int buf = win & 1;
-    Word* s = s_slab + buf * C * kCKS;
-    int2* rec = s_rec + buf * kCap;
-    unsigned char* col = s_col + buf * kCap;
-    int* split = s_split + buf * (kWorkers + 1);
-    const int4 x = s_idx[q - seg0];
-    // Their last readers finished before the previous window's barrier.
-#pragma unroll
-    for (int i = 0; i < PRE; ++i) {
-      if (u_kk[i] < ks) store_unit<SPLIT>(s, u_c[i], u_kk[i], C, unit[i]);
-    }
-    for (int u = tid + PRE * kThreads; u < n_units; u += kThreads) {
-      const int kk = u / upr, c0 = (u % upr) * 8;
-      if (kk < ks) {
-        store_unit<SPLIT>(s, c0, kk, C,
-                          load_unit<SPLIT>(slab_of(x.y, kk), c0, C));
-      }
-    }
-    const int m = min(x.w - x.z - w0, kCap);  // the window's entries
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < m) {
-        const int c = e_c[i];
-        rec[e] = make_int2(c * kCKS + ((c >> 1) & 0x1c), e_t[i]);
-      }
-    }
-    // Worker w's even share begins at entry t(w) = ceil(w m / kWorkers).
-    if (tid < rs) {
-      // Column tid's entries in the window, [a, b): their column ids, and
-      // the start of every worker whose share begins inside them (the
-      // next column start, so that no column is split between workers):
-      // those w from the first with t(w) >= a, floor((a - 1) kWorkers / m)
-      // + 1, while t(w) < b.
-      const int a = max(col_a - w0, 0), b = min(col_b - w0, m);
-      for (int e = a; e < b; ++e) col[e] = static_cast<unsigned char>(tid);
-      if (a < b) {
-        for (int w = a == 0 ? 0 : (a - 1) * kWorkers / m + 1; w < kWorkers;
-             ++w) {
-          const int t = (w * m + kWorkers - 1) / kWorkers;
-          if (t >= b) break;
-          split[w] = t == a ? a : b;
-        }
-      }
-    }
-    // And the shares that begin past the last entry.
-    if (tid <= kWorkers && (tid * m + kWorkers - 1) / kWorkers >= m) {
-      split[tid] = m;
-    }
-    // Advance to the pair's next window, or the next pair with entries,
-    // and prefetch.
+  }
+  __device__ int4 idx() const { return s_idx[q - seg0]; }
+  // The pair's next window, or the next pair with entries.
+  __device__ void next(int4 x) {
     w0 += kCap;
     if (w0 >= x.w - x.z) {
       w0 = 0;
       ++q;
       find_pair();
     }
-    if (q < p_end) load_data(q, w0);
-    __syncthreads();
-    // Worker w (lanes kWorkerLanes w.., rows kk = kq..kq + kQ - 1 of
-    // lane kq / kQ) walks its run BATCH entries at a time; one shared
-    // load brings a lane its kQ slab words (the swizzle keeps them
-    // contiguous).
-    const int kq = kQ * (lane % kWorkerLanes);
-    int e = split[tid / kWorkerLanes];
-    const int end = split[tid / kWorkerLanes + 1];
-    int prev = e < end ? col[e] : -1;
-    float run[kQ] = {};
-    while (__any_sync(0xffffffffu, e < end)) {
-      int2 r[BATCH];
-      int cl[BATCH];
-      Word wd[BATCH][kQ];
-#pragma unroll
-      for (int i = 0; i < BATCH; ++i) {
-        if (e + i < end) {
-          r[i] = rec[e + i];
-          cl[i] = col[e + i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < BATCH; ++i) {
-        if (e + i < end) load_words(s, r[i].x ^ kq, wd[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < BATCH; ++i) {
-        if (e + i < end) {
-          if (cl[i] != prev) {  // the column changed: add its sums
-            flush_run(s_acc + prev * kCKS + kq, run);
-            prev = cl[i];
-          }
-          fma_words(wd[i], r[i].y, run);
-        }
-      }
-      e += BATCH;
-    }
-    if (prev >= 0) flush_run(s_acc + prev * kCKS + kq, run);
   }
-  __syncthreads();
+};
+
+// A window's staging by the CTA's threads (this one t): PRE staging units
+// a thread (unit u = t + i kThreads: slab row u / upr, columns from (u %
+// upr) * 8), its share of the entries and, for thread r < rs, the bounds
+// of column r's entries (CTA-relative) are loaded into registers while
+// the previous window is walked (load), then written as the window
+// (store): the rest of a wider slab is copied as it is stored.
+template <bool SPLIT, int PRE, typename ColT, typename RowT>
+struct Stager {
+  using Word = typename WordOf<SPLIT>::T;
+  static constexpr int kPer = kCap / kThreads;  // entries a thread stages
+  const __nv_bfloat16* slabs;
+  Compact tiles;
+  int chunk_base, C, R, k8, k_base, ks, r_base, rs, t;
+  Unit unit[PRE];
+  int u_kk[PRE], u_c[PRE];
+  int e_c[kPer], e_t[kPer], col_a, col_b;
+
+  __device__ void init() {
+    const int upr = C / 16;
+#pragma unroll
+    for (int i = 0; i < PRE; ++i) {
+      const int u = t + i * kThreads;
+      u_kk[i] = u < kCKS * upr ? u / upr : kCKS;
+      u_c[i] = (u % upr) * 8;
+    }
+  }
+  __device__ const __nv_bfloat16* slab_of(int chunk, int kk) const {
+    return slabs + ((static_cast<size_t>(chunk_base) + chunk) * k8 + k_base +
+                    kk) * (static_cast<size_t>(SPLIT ? 2 : 1) * C);
+  }
+  __device__ void load(int q, int4 x, int w0) {
+#pragma unroll
+    for (int i = 0; i < PRE; ++i) {
+      if (u_kk[i] < ks) {
+        unit[i] = load_unit<SPLIT>(slab_of(x.y, u_kk[i]), u_c[i], C);
+      }
+    }
+    const RowT* __restrict__ rows = static_cast<const RowT*>(tiles.rows);
+    const Word* __restrict__ vals = static_cast<const Word*>(tiles.vals);
+    const int n = min(x.w - x.z - w0, kCap);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = t + i * kThreads;
+      if (e < n) {
+        e_c[i] = __ldg(rows + x.x + x.z + w0 + e);
+        e_t[i] = __ldg(vals + x.x + x.z + w0 + e);
+      }
+    }
+    if (t < rs) {
+      const ColT* cp = static_cast<const ColT*>(tiles.col_ptr) +
+                       static_cast<size_t>(q) * (R + 1) + r_base;
+      col_a = static_cast<int>(__ldg(cp + t)) - x.z;
+      col_b = static_cast<int>(__ldg(cp + t + 1)) - x.z;
+    }
+  }
+  __device__ void store(const Window<SPLIT>& w, int4 x, int w0) const {
+#pragma unroll
+    for (int i = 0; i < PRE; ++i) {
+      if (u_kk[i] < ks) store_unit<SPLIT>(w.slab, u_c[i], u_kk[i], C, unit[i]);
+    }
+    const int upr = C / 16;
+    for (int u = t + PRE * kThreads; u < kCKS * upr; u += kThreads) {
+      const int kk = u / upr, c0 = (u % upr) * 8;
+      if (kk < ks) {
+        store_unit<SPLIT>(w.slab, c0, kk, C,
+                          load_unit<SPLIT>(slab_of(x.y, kk), c0, C));
+      }
+    }
+    // Each record's low half-word (the slab offset) and tile bits by the
+    // entry's thread, its high half-word (the column) by the column's.
+    const int m = min(x.w - x.z - w0, kCap);  // the window's entries
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = t + i * kThreads;
+      if (e < m) {
+        const int c = e_c[i];
+        reinterpret_cast<uint16_t*>(w.rec + e)[0] = static_cast<uint16_t>(
+            (c * kCKS + ((c >> 1) & 0x1c)) * sizeof(Word));
+        w.rec[e].y = e_t[i];
+      }
+    }
+    // Worker v's even share begins at entry s(v) = ceil(v m / kWorkers).
+    if (t < rs) {
+      // Column t's entries in the window, [a, b): their column, and the
+      // start of every worker whose share begins inside them (the next
+      // column start, so that no column is split between workers): those
+      // v from the first with s(v) >= a, floor((a - 1) kWorkers / m) + 1,
+      // while s(v) < b.
+      const int a = max(col_a - w0, 0), b = min(col_b - w0, m);
+      for (int e = a; e < b; ++e) {
+        reinterpret_cast<uint16_t*>(w.rec + e)[1] = static_cast<uint16_t>(t);
+      }
+      if (a < b) {
+        for (int v = a == 0 ? 0 : (a - 1) * kWorkers / m + 1; v < kWorkers;
+             ++v) {
+          const int s = (v * m + kWorkers - 1) / kWorkers;
+          if (s >= b) break;
+          w.split[v] = s == a ? a : b;
+        }
+      }
+    }
+    // And the shares that begin past the last entry.
+    if (t <= kWorkers && (t * m + kWorkers - 1) / kWorkers >= m) {
+      w.split[t] = m;
+    }
+  }
+};
+
+// Worker tid / kWorkerLanes (lanes kWorkerLanes w.., rows kk = kq..kq +
+// kQ - 1 of lane kq / kQ) walks its run of a staged window BATCH entries
+// at a time; one shared load brings an entry's record (slab offset and
+// column), one more a lane its kQ slab words (the swizzle keeps them
+// contiguous). A running sum per column is added to the column's
+// accumulator in s_acc when the column changes.
+template <bool SPLIT, int BATCH>
+__device__ __forceinline__ void walk_window(const Window<SPLIT>& w,
+                                            float* s_acc, int tid) {
+  using Word = typename WordOf<SPLIT>::T;
+  const int lane = tid & 31;
+  const int kq = kQ * (lane % kWorkerLanes);
+  const unsigned kq_at = kq * sizeof(Word);  // the lane's rows, in bytes
+  const unsigned char* slab = reinterpret_cast<const unsigned char*>(w.slab);
+  int e = w.split[tid / kWorkerLanes];
+  const int end = w.split[tid / kWorkerLanes + 1];
+  int prev = e < end ? static_cast<unsigned>(w.rec[e].x) >> 16 : -1;
+  float run[kQ] = {};
+  // BATCH entries from e; with CHECKED, only those before the run's end.
+  auto step = [&](auto checked) {
+    constexpr bool CHECKED = decltype(checked)::value;
+    int2 r[BATCH];
+    Word wd[BATCH][kQ];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      if (!CHECKED || e + i < end) r[i] = w.rec[e + i];
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      if (!CHECKED || e + i < end) {
+        load_words(slab, (static_cast<unsigned>(r[i].x) & 0xffffu) ^ kq_at,
+                   wd[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      if (!CHECKED || e + i < end) {
+        const int cl = static_cast<unsigned>(r[i].x) >> 16;
+        if (cl != prev) {  // the column changed: add its sums
+          flush_run(s_acc + prev * kCKS + kq, run);
+          prev = cl;
+        }
+        fma_words(wd[i], r[i].y, run);
+      }
+    }
+    e += BATCH;
+  };
+  // While every worker of the warp has BATCH entries left, no entry is
+  // checked against its run's end.
+  while (__all_sync(0xffffffffu, e + BATCH <= end)) {
+    step(std::false_type{});
+  }
+  while (__any_sync(0xffffffffu, e < end)) step(std::true_type{});
+  if (prev >= 0) flush_run(s_acc + prev * kCKS + kq, run);
+}
+
+// Output block b from the accumulators (warp `warp` writes columns
+// r_base + warp * kCCols..), in the layout OUT.
+template <int OUT>
+__device__ __forceinline__ void write_block(const float* s_acc,
+                                            void* __restrict__ out, int b,
+                                            int R, int k8, int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k_base = blockIdx.y * kCKS;
+  const int ks = min(kCKS, k8 - k_base);
+  const int r_base = blockIdx.z * kCRS;
   const int r0 = r_base + warp * kCCols;          // this warp's output
   const int ncol = max(0, min(kCCols, R - r0));   // columns: 0, 8 or 16
   float acc[kCCols];
@@ -708,6 +753,59 @@ __device__ __forceinline__ void tmulti_block(
           make_float4(acc[j0], acc[j0 + 1], acc[j0 + 2], acc[j0 + 3]);
     }
   }
+}
+
+// One CTA's share of an output block of B1 / B6 / B3 / B4 bf16: the
+// pairs [p_begin, p_end) (indices into the compact plane and pair_chunk),
+// slabs at chunk_base + pair_chunk[p], the sum written as output block `b`
+// in the layout OUT. blockIdx.y / .z pick the k8 and R slices.
+//
+// The CTA walks windows of up to kCap entries of its columns (a tile
+// with more takes several; with SKIP, a pair with none in its columns
+// takes none: no staging, no barrier): per window it stages the slab and
+// the records (Stager) into one of two window buffers, then the kWorkers
+// workers walk it (walk_window). Software-pipelined: while one window is
+// walked, PRE staging units of the next window's slab and its entries
+// are in flight to registers, and the next pair's indices, so no global
+// load's latency sits between two windows; one barrier per window.
+template <bool SPLIT, int OUT, int BATCH, int PRE, bool SKIP,
+          typename ColT, typename RowT>
+__device__ __forceinline__ void tmulti_block(
+    int p_begin, int p_end, const int* __restrict__ pair_chunk,
+    int chunk_base, Compact tiles, const __nv_bfloat16* __restrict__ slabs,
+    void* __restrict__ out, int b, int C, int R, int k8) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Two window buffers, the accumulators [kCRS][kCKS], the pair indices.
+  float* s_acc = reinterpret_cast<float*>(smem + 2 * window_bytes<SPLIT>(C));
+  int4* s_idx = reinterpret_cast<int4*>(s_acc + kCRS * kCKS);
+  const int tid = threadIdx.x;
+  const int k_base = blockIdx.y * kCKS;
+  const int r_base = blockIdx.z * kCRS;
+  const int rs = min(kCRS, R - r_base);
+
+  for (int i = tid; i < kCRS * kCKS; i += kThreads) s_acc[i] = 0.f;
+  Cursor<SKIP, ColT> cur{s_idx, tiles.nz_ptr, pair_chunk,
+                         static_cast<const ColT*>(tiles.col_ptr), p_end, R,
+                         r_base, rs};
+  Stager<SPLIT, PRE, ColT, RowT> st{
+      slabs, tiles, chunk_base, C, R, k8, k_base, min(kCKS, k8 - k_base),
+      r_base, rs, tid};
+  st.init();
+  cur.start(p_begin);
+  if (cur.q < p_end) st.load(cur.q, cur.idx(), 0);
+  for (int win = 0; cur.q < p_end; ++win) {
+    const Window<SPLIT> w =
+        Window<SPLIT>::at(smem + (win & 1) * window_bytes<SPLIT>(C), C);
+    const int4 x = cur.idx();
+    // Its last readers finished before the previous window's barrier.
+    st.store(w, x, cur.w0);
+    cur.next(x);
+    if (cur.q < p_end) st.load(cur.q, cur.idx(), cur.w0);
+    __syncthreads();
+    walk_window<SPLIT, BATCH>(w, s_acc, tid);
+  }
+  __syncthreads();
+  write_block<OUT>(s_acc, out, b, R, k8, tid);
 }
 
 // B1: CTA x owns output block x.

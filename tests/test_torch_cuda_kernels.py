@@ -149,17 +149,30 @@ def test_tmulti_spans_blocks_mid_step(cuda):
     assert err < 5e-3
 
 
-def test_tmulti_empty_run_writes_zeros(cuda):
+@pytest.mark.parametrize("block", [0, 7, -1],
+                         ids=["first", "middle", "last"])
+def test_tmulti_empty_run_writes_zeros(cuda, block):
     csr = fem3d_csr(256, 4096, seed=0).astype(np.float32)
     host = _wp(csr, U=8, R=16)
     wp = host.to(cuda)
     _, _, slabs = _slabs(wp, 16, cuda, seed=4)
+    b = block % wp.n_blocks
     bp = wp.block_ptr.clone()
-    bp[1] = bp[0]  # block 0's run becomes empty
+    bp[b + 1] = bp[b]  # block b's run becomes empty
     out = cw.windowed_matmul_tmulti(
         wp.pair_block, wp.pair_chunk, bp, _compact(host, cuda), slabs,
         nb=wp.n_blocks, pairs_per_step=8)
-    assert torch.count_nonzero(out[0]) == 0
+    assert torch.count_nonzero(out[b]) == 0
+    # The others sum the pairs of their runs, block b + 1 also b's.
+    n = int(bp[-1])
+    pb = torch.repeat_interleave(
+        torch.arange(wp.n_blocks, device=cuda), torch.diff(bp).long())
+    plain = (pb, wp.pair_chunk[:n])
+    want = cw.windowed_matmul_tmulti_plain(*plain, wp.tiles_t[:n], slabs,
+                                           nb=wp.n_blocks)
+    cond = cw.windowed_matmul_tmulti_plain(
+        *plain, wp.tiles_t[:n].abs(), slabs.abs(), nb=wp.n_blocks)
+    _assert_b1_close(out, want, cond)
 
 
 def _hazard_operand(C, R, split, seed):
@@ -192,26 +205,32 @@ def _hazard_operand(C, R, split, seed):
 #: Every hazard of the compact plane against the plain version: index
 #: widths (uint16 / int32 column offsets, uint8 / int16 rows), R = 8 (one
 #: warp's half), R = 256 (two column slices), k8 below a warp, at one
-#: and past one k8 slice, split planes and one plane.
+#: and past one k8 slice, split planes and one plane; on the hazard
+#: operand and on one whose runs have one pair, none and 90 (past a
+#: segment of staged pair indices). B6 on the same operand, its blocks in
+#: two phases, resident against streamed (B1 per phase) bit for bit.
 @pytest.mark.parametrize("split", [True, False], ids=["split", "one-plane"])
 @pytest.mark.parametrize("k8", [8, 16, 32, 64])
 @pytest.mark.parametrize("C,R", [(128, 128), (128, 8), (256, 256),
                                  (512, 128)])
-def test_tmulti_compact_hazards(cuda, C, R, k8, split):
-    pb, pc, bp, tiles_t, nb, n_chunks = _hazard_operand(C, R, split,
-                                                        seed=C + R + k8)
+@pytest.mark.parametrize("runs", [False, True], ids=["hazards", "runs"])
+def test_tmulti_compact_hazards(cuda, runs, C, R, k8, split):
+    pb, pc, bp, tiles_t, nb, n_chunks = (
+        _runs_operand(C, R, split, n_long=90, seed=C + R + k8) if runs else
+        _hazard_operand(C, R, split, seed=C + R + k8))
     ct = CompactTiles.from_dense(tiles_t, split)
     assert ct.wide == (int(C * R > 65535) | int(C > 256) << 1)
     np.testing.assert_array_equal(
         ct.to_dense(), tiles_t.view(torch.int16).numpy().view(np.uint16))
     ct = ct.to(cuda)
+    empty = np.flatnonzero(np.diff(bp) == 0)
     pb, pc, bp = (torch.from_numpy(a).to(cuda) for a in (pb, pc, bp))
     dense = tiles_t.to(cuda)
     v = torch.from_numpy(np.random.default_rng(k8).uniform(
         -50, 50, (n_chunks * C, k8)).astype(np.float32)).to(cuda)
     slabs = (cw.chunk_slabs(v, C=C, split=True) if split else
              cw.chunk_slabs(v.to(torch.bfloat16), C=C, split=False))
-    kw = dict(nb=nb, pairs_per_step=8, split=split)
+    kw = dict(nb=nb, pairs_per_step=1, split=split)
     cw.reset_launch_counts()
     got = cw.windowed_matmul_tmulti(pb, pc, bp, ct, slabs, **kw)
     assert cw.launch_counts() == _counts(B1=1)
@@ -221,12 +240,46 @@ def test_tmulti_compact_hazards(cuda, C, R, k8, split):
                                            nb=nb, split=split)
     torch.cuda.synchronize()
     _assert_b1_close(got, want, cond)
-    assert torch.count_nonzero(got[1]) == torch.count_nonzero(got[4]) == 0
+    assert empty.size and all(torch.count_nonzero(got[b]) == 0
+                              for b in empty)
     if split and k8 % 16 == 0:
         fused = cw.windowed_matmul_tmulti(pb, pc, bp, ct, slabs,
                                           fuse_resplit=True, **kw)
         assert torch.equal(fused.view(torch.int16),
                            cw.resplit_slabs(got).view(torch.int16))
+    h = nb // 2
+    n0 = int(bp[h])
+    phases = ((0, n0, 0, 0, h), (n0, pb.numel() - n0, 0, h, nb - h))
+    args = (torch.cat([pb[:n0], pb[n0:] - h]), pc,
+            torch.cat([bp[:h + 1], bp[h:] - n0]), ct, slabs)
+    kw = dict(nb=nb, phases=phases, chunks_per_phase=n_chunks,
+              pairs_per_step=1, split=split)
+    resident = cw.windowed_matmul_tmulti_phased(*args, **kw)
+    streamed = cw.windowed_matmul_tmulti_phased(*args, force_streamed=True,
+                                                **kw)
+    assert torch.equal(resident, streamed)
+    _assert_b1_close(resident, want, cond)
+
+
+def _runs_operand(C, R, split, n_long, seed):
+    """A B1 operand at the edges of a CTA's chain of windows: block 0
+    holds one pair, block 1 none, block 2 ``n_long`` pairs, one of them a
+    quarter full (more than kCap entries in each CTA's columns: several
+    windows of one pair), block 3 two. Returns
+    ``(pair_block, pair_chunk, block_ptr, tiles_t, nb, n_chunks)`` on the
+    host, as ``_hazard_operand``."""
+    rng = np.random.default_rng(seed)
+    pb = np.array([0] + [2] * n_long + [3, 3], dtype=np.int32)
+    nb, n_chunks, P = 4, 3, pb.size
+    pc = rng.integers(0, n_chunks, P).astype(np.int32)
+    bp = np.searchsorted(pb, np.arange(nb + 1)).astype(np.int32)
+    x = rng.uniform(-1, 1, (P, C, R)).astype(np.float32)
+    keep = rng.random((P, C, R)) < 0.02
+    keep[3] = rng.random((C, R)) < 0.25
+    t = torch.from_numpy(np.where(keep, x, np.float32(0)))
+    hi = t.to(torch.bfloat16)
+    planes = [hi, (t - hi.float()).to(torch.bfloat16)] if split else [hi]
+    return pb, pc, bp, torch.cat(planes, dim=1), nb, n_chunks
 
 
 def test_dense_tiles_on_the_card_raise(cuda):
