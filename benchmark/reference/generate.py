@@ -8,6 +8,12 @@ is the benchmark's own, since the program's ``amazon0302_like`` keeps
 fewer links than the published matrix has. They are not imported from
 the program, so that a later change to it cannot move the yardstick. A
 matrix comes back as ``Csr`` of plain NumPy arrays.
+
+``GENERATORS`` holds these two stand-ins and no more: a configuration
+that needs another brings it as a file of its own,
+``reference/generators/<name>.py`` with ``generate(seed, dtype, scale)
+-> Csr``, a frozen copy or the benchmark's own as these are, which
+``reference/operators.py::find_generator`` loads by its path.
 """
 
 from __future__ import annotations

@@ -48,6 +48,17 @@ def test_names_units_and_files():
         assert os.path.isfile(reader_path(m["name"]))
 
 
+@pytest.mark.parametrize("c", [c["name"] for c in SPEC["configs"]])
+def test_every_configuration_resolves_its_generator_and_operator(c):
+    from benchmark.reference.operators import (find_generator,
+                                               find_normalisation)
+
+    entry = next(e for e in SPEC["configs"] if e["name"] == c)
+    cfg = json.load(open(os.path.join(ROOT, entry["file"])))
+    assert callable(find_generator(cfg["generator"]))
+    assert callable(find_normalisation(cfg["operator"]))
+
+
 @pytest.mark.parametrize("w", [w["name"] for w in SPEC["workloads"]])
 def test_every_cell_reports_setup_another_metric_and_a_layer(w):
     cell = load_cell(w)
@@ -90,15 +101,31 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 
 REF_SCRIPT = r"""
-import sys
+import os, sys
 sys.path.insert(0, {root!r})
 import numpy as np
 from benchmark.reference import chain, pagerank, control, operators, generate
+from benchmark.reference import generators, normalisations
 cfg = {{"generator": "amazon0302_top5", "scale": 0.01, "pattern_seed": 0,
        "relabel": "cyclic_shift", "operator": "column_stochastic_abs"}}
 a = operators.as_scipy(operators.operator(cfg, 4))
 kept, deltas, stop = pagerank.power_iteration(a, 0.85, 1e-9, 100, keep=(3,))
 assert 3 in kept and stop > 3
+# Every generator and normalisation that a configuration may name as a file,
+# run, so that an import inside ``generate`` or ``normalise`` shows too: each
+# generator at a small scale, each normalisation on every stand-in's matrix.
+# A file whose name starts with ``_`` is a helper, loaded by what imports it.
+def named(d):
+    return [f[:-3] for f in sorted(os.listdir(d))
+            if f.endswith(".py") and not f.startswith("_")]
+mats = [gen(seed=0, dtype=np.float64, scale=0.01)
+        for gen in generate.GENERATORS.values()]
+for name in named(operators.GENERATOR_DIR):
+    mats.append(operators.find_generator(name)(0, np.float64, 0.01))
+for name in named(operators.NORMALISATION_DIR):
+    normalise = operators.find_normalisation(name)
+    for m in mats:
+        normalise(m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("sparsematrixmultiplicationmpi_tpu")
              or m.split(".")[0] in ("jax", "jaxlib", "flax"))
