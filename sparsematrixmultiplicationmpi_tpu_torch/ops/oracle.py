@@ -5,9 +5,16 @@
 result is checked against (the reference's sequential kernel,
 ``SparseMatrixFatVectorMultiply.cpp:11-31``, also ran in f64 on the host).
 ``spmm_coo`` is the triple loop as one row gather plus an ``index_add_``
-over the COO rows; ``spmm_sequential`` is the single-device oracle over
-it, ``spmm_dense`` the densify-and-matmul oracle for small matrices
-(every format, either device, any dtype).
+over the COO rows, and ``Auto``'s gather route where the cost table picks
+COO; ``spmm_sequential`` is the single-device oracle over it,
+``spmm_dense`` the densify-and-matmul oracle for small matrices (every
+format, either device, any dtype).
+
+``spmm_coo`` marks its two halves with ``utils/profiling.py`` spans,
+``coo.gather`` (the row gather and the product) and ``coo.scatter`` (the
+zero fill and the ``index_add_``), and counts ``coo.staged_bytes``, the
+bytes of the two (nnz x k) intermediates it writes a call (the gathered
+rows and the products). Both record only while a profiler records.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from ..formats.matrix import COO, CSR, as_float64
+from ..utils.profiling import count, span
 
 __all__ = ["spmm_coo", "spmm_sequential", "spmm_dense", "spmm_host_f64"]
 
@@ -24,10 +32,18 @@ def spmm_coo(coo: COO, v: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_{j: row[j]==r} values[j] * v[col[j], :]``; ``coo``
     must already be on ``v``'s device (``coo.to(v.device)``)."""
     m, _ = coo.shape
-    prods = coo.values[:, None].to(v.dtype) * v.index_select(
-        0, coo.col_indices)
-    out = torch.zeros((m, v.shape[1]), dtype=v.dtype, device=v.device)
-    return out.index_add_(0, coo.row_indices, prods)
+    with span("coo.gather"):
+        rows = v.index_select(0, coo.col_indices)
+        prods = coo.values[:, None].to(v.dtype) * rows
+        staged = (rows.numel() * rows.element_size()
+                  + prods.numel() * prods.element_size())
+        # Freed before the output is allocated: one intermediate at the peak.
+        del rows
+    with span("coo.scatter"):
+        out = torch.zeros((m, v.shape[1]), dtype=v.dtype, device=v.device)
+        out.index_add_(0, coo.row_indices, prods)
+    count("coo.staged_bytes", staged)
+    return out
 
 
 def spmm_sequential(matrix, v: torch.Tensor) -> torch.Tensor:

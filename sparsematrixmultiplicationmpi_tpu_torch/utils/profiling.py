@@ -15,10 +15,14 @@ timer blocks inside every kernel and rebuilding (``RowWise.cpp:21-23,
   trace (on the kernels' clock) and a host duration in the registry;
   otherwise one shared no-op context, so the hot path pays one flag
   read;
+* ``count(name, n)`` adds ``n`` to a named counter of the same path
+  (bytes staged, say): its count and total, and only while a profiler
+  records, as ``span`` does;
 * ``phase(name, sync=None)`` marks set-up work done once per matrix:
   its host seconds always go to the registry (count and total), and it
   is a ``record_function`` region too while a profiler records;
-* ``snapshot()`` reads the registry, ``reset_spans()`` clears it;
+* ``snapshot()`` reads the registry (spans, phases and counters),
+  ``reset_spans()`` clears it;
 * ``comm_comp_split`` estimates the collective-vs-compute split by
   differential timing: the strategy with its result gathered and left
   sharded, each as an amortized slope (``utils/timing.py``: CUDA events
@@ -36,11 +40,12 @@ import torch.autograd.profiler as _autograd_profiler
 
 from .timing import _synchronize
 
-__all__ = ["trace", "annotate", "span", "phase", "snapshot", "reset_spans",
-           "comm_comp_split"]
+__all__ = ["trace", "annotate", "span", "phase", "count", "snapshot",
+           "reset_spans", "comm_comp_split"]
 
 #: name -> {"count", "total_s", "durations_s"}: what spans and phases
-#: recorded in this process (``durations_s`` holds spans' only).
+#: recorded in this process (``durations_s`` holds spans' only); a
+#: counter's entry is {"count", "total"}.
 _REGISTRY: dict = {}
 _NOOP = contextlib.nullcontext()
 
@@ -135,17 +140,32 @@ def phase(name: str, sync=None):
             _add(name, time.perf_counter() - t0, keep=False)
 
 
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` (one to its count, ``n`` to its
+    total), ``count("coo.staged_bytes", nbytes)``. Like ``span`` it
+    records only while a profiler records; otherwise it is one flag
+    read."""
+    if not _recording():
+        return
+    entry = _REGISTRY.get(name)
+    if entry is None:
+        entry = _REGISTRY[name] = {"count": 0, "total": 0}
+    entry["count"] += 1
+    entry["total"] += n
+
+
 def snapshot() -> dict:
     """A copy of the registry: ``{name: {"count", "total_s",
-    "durations_s"}}``, ``durations_s`` the spans' host durations (empty
-    for a phase)."""
-    return {name: {"count": e["count"], "total_s": e["total_s"],
-                   "durations_s": list(e["durations_s"])}
+    "durations_s"}}`` for spans and phases, ``durations_s`` the spans'
+    host durations (empty for a phase), and ``{name: {"count",
+    "total"}}`` for counters."""
+    return {name: {k: list(v) if isinstance(v, list) else v
+                   for k, v in e.items()}
             for name, e in _REGISTRY.items()}
 
 
 def reset_spans() -> None:
-    """Forget everything spans and phases recorded."""
+    """Forget everything spans, phases and counters recorded."""
     _REGISTRY.clear()
 
 
